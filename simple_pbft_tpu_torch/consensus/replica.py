@@ -1,0 +1,2781 @@
+"""Event-driven replica runtime.
+
+Parity target: the reference's L3 node runtime (pbft/network/node.go) —
+redesigned around its catalogued defects (SURVEY.md §2.9, §3.5):
+
+- **Event-driven, not polled**: the reference clocks all progress on a 1 s
+  alarm tick (node.go:44,513-518), costing ~1 s per phase (~3 s per
+  commit, log-confirmed). Here the loop wakes on message arrival; a drain
+  sweep picks up everything queued, so batching emerges under load with no
+  added latency when idle.
+- **Many instances in flight**: per-(view, seq) ``Instance`` map replaces
+  the scalar ``CurrentState`` (node.go:21) that serialized rounds.
+- **Batched signature verification — the TPU seam**: every inbound
+  message's signature (plus the client signatures inside a proposed
+  block) becomes a ``BatchItem``; one ``verify_batch`` call per drain
+  sweep covers the whole sweep. With the TPU backend that is one device
+  call per sweep, regardless of committee size.
+- **Real execution + replies to the client**: committed blocks apply to an
+  ``Application`` in strict sequence order; signed replies go to the
+  client, which needs f+1 matching (the reference sent replies to the
+  *primary* and dropped them, node.go:132-147,269-274).
+- **Request batching**: the primary cuts all pending requests into one
+  block per proposal (the reference did one request per round).
+- **Checkpoints + watermarks**: periodic state-digest checkpoints; at 2f+1
+  matching, the low watermark h advances and old instances are GC'd (the
+  reference's ``CommittedMsgs`` grew forever, node.go:246).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import hashlib
+import logging
+import threading
+from collections import OrderedDict, defaultdict
+from typing import Any, Dict, List, Optional, Set, Tuple
+
+from .. import clock, spans, trace
+from ..app import Application, KVStore
+from ..config import (
+    CommitteeConfig,
+    apply_reconfig,
+    config_doc,
+    config_from_doc,
+)
+from ..crypto.coalesce import Overloaded
+from ..crypto.signer import Signer
+from ..crypto.verifier import BatchItem, Verifier, best_cpu_verifier
+from ..logutil import ReplicaStats
+from ..messages import (
+    DEFERRABLE,
+    EMPTY_BLOCK_DIGEST,
+    BlockFetch,
+    BlockReply,
+    Checkpoint,
+    Commit,
+    ConfigFetch,
+    ConfigReply,
+    Message,
+    NewView,
+    NewViewFetch,
+    PrePrepare,
+    Prepare,
+    QuorumCert,
+    Reply,
+    Request,
+    SlotFetch,
+    StateChunkReply,
+    StateChunkRequest,
+    StateRequest,
+    StateResponse,
+    ViewChange,
+    canonical_json,
+)
+from ..transport.base import Transport
+from . import qc as qc_mod
+from .speculation import SpeculationEngine
+from .statesync import StateSync
+from .state import ExecuteBlock, Instance, SendCommit, SendPrepare, Stage
+from .viewchange import (
+    ViewChanger,
+    validate_new_view,
+    validate_view_change,
+)
+
+log = logging.getLogger("pbft.replica")
+
+# Per-client count of ABOVE-FLOOR reply-cache entries beyond which the
+# checkpoint fold stops honoring the client's declared completion floor
+# (Request.ack) and reverts to the horizon-only fold: replay-state
+# memory must be bounded even for a client that never declares (or
+# deliberately under-declares) its floor. An honest pipelined client
+# keeps at most its in-flight window above the floor, far under this.
+RECENT_REPLIES_CAP = 512
+
+# Above-floor entries still fold once their executing seq is this many
+# checkpoint intervals old: a DEPARTED client's final in-flight window
+# never gets a higher floor, and without an age-out those entries would
+# ride every future snapshot forever. 16 intervals is a 16x longer
+# runway than the horizon rule — and in the fold-race scenario the floor
+# protects against (a stalled retry under load), seqs advance slowly
+# exactly when the race window matters, so an ACTIVE client's in-flight
+# request effectively never ages out.
+STALE_FOLD_INTERVALS = 16
+
+# Deferrable message classes for overload shedding.
+# When a drain sweep exceeds the shed watermark the replica is behind
+# its inbound rate; ONLY these classes may be dropped — every sender
+# here has a retry path (clients back off and retransmit, fetch/probe
+# requesters re-fire on their own timers) — and they are shed BEFORE
+# their signatures are verified, since shedding after verify would
+# spend the very resource being protected. Everything else is treated
+# as quorum-critical by default (phase votes, checkpoints, view-change
+# traffic, QCs, and the BlockReply/StateResponse repair payloads whose
+# absence is usually the overload's cause): an unlisted class is KEPT —
+# the safe polarity for consensus liveness. The class set itself lives
+# in messages.DEFERRABLE — one source shared with the TCP transport's
+# mid-write/drain policy so the two can't drift.
+SHED_DEFERRABLE = DEFERRABLE
+
+# Planted-defect registry for deterministic-simulation search (the
+# same contract as statesync.DEFECTS / speculation.DEFECTS): names are
+# armed by sim scenarios to re-introduce specific bug shapes so the
+# load-shape search can prove it FINDS them. Never set in production.
+#
+# - "shed_bulk_bias": _shed_for_overload fills the deferrable budget
+#   biggest-payload-first instead of arrival-order ("maximize work kept
+#   per slot" — a plausible throughput hack), so padded bulk requests
+#   monopolize the budget under sustained overload and the interactive
+#   class starves: the fairness bug the slo:starved-class oracle exists
+#   to catch.
+DEFECTS: Set[str] = set()
+
+# Membership reconfiguration rides the ordinary request path as a
+# specially-prefixed operation (docs/SCENARIOS.md): deterministic
+# execution order for free (it IS a slot), admin authorization by the
+# request's own client signature, and activation deferred to the next
+# checkpoint boundary so every honest replica switches epochs at the
+# same watermark edge.
+RECONFIG_PREFIX = "__reconfig__ "
+
+
+class Replica:
+    """One PBFT replica: consensus state, execution, crypto seam."""
+
+    def __init__(
+        self,
+        node_id: str,
+        cfg: CommitteeConfig,
+        seed: bytes,
+        transport: Transport,
+        app: Optional[Application] = None,
+        verifier: Optional[Verifier] = None,
+        max_drain: int = 4096,
+        shed_watermark: int = 0,
+    ) -> None:
+        self.id = node_id
+        self.cfg = cfg
+        self.signer = Signer(node_id, seed)
+        self._seed = seed  # epoch changes rebuild the kx MacBank
+        self.transport = transport
+        self.app = app if app is not None else KVStore()
+        self.verifier = verifier if verifier is not None else best_cpu_verifier()
+        self.max_drain = max_drain
+        # overload shedding trips when a drain sweep exceeds this many
+        # decoded messages (0 = derive from max_drain: a sweep at 3/4 of
+        # the drain bound means the loop is running behind its inbound
+        # rate and deferrable classes must yield to quorum traffic)
+        self.shed_watermark = shed_watermark or max(64, (max_drain * 3) // 4)
+
+        self.view = 0
+        self.next_seq = 1  # primary's sequence allocator
+        self.executed_seq = 0  # last block applied to the app
+        self.stable_seq = 0  # low watermark h (last stable checkpoint)
+        self.instances: Dict[Tuple[int, int], Instance] = {}
+        self.ready: Dict[int, ExecuteBlock] = {}  # committed, awaiting order
+        self.pending_requests: List[Request] = []  # primary's backlog
+        self.seen_requests: Dict[Tuple[str, int], int] = {}  # dedup -> seq
+        # Per-client replay protection for PIPELINED clients. A client's
+        # concurrent requests can commit out of timestamp order (relays
+        # scramble arrival during failover), so a max-executed-ts
+        # watermark alone would skip lower timestamps forever. Instead:
+        # `client_watermark` is the FLOOR (everything at/below executed,
+        # folded forward at checkpoints) and `recent_replies` holds the
+        # exact executed timestamps (with their replies) above it.
+        self.client_watermark: Dict[str, int] = {}
+        self.recent_replies: Dict[str, Dict[int, Reply]] = {}
+        # highest signed completion floor seen per client, updated only
+        # from EXECUTED blocks (so it is a deterministic function of the
+        # agreed history and part of checkpoint state). The fold in
+        # _emit_checkpoint never crosses it — see messages.Request.ack.
+        self.client_ack: Dict[str, int] = {}
+        # seq -> digest for executed blocks above the stable watermark
+        # (safety audits, slot-fetch block refill); insertion-ordered by
+        # execution. The reference's append-only CommittedMsgs
+        # (node.go:246) grew forever; this folds at each checkpoint.
+        self.committed_log: Dict[int, str] = {}
+        # seq -> sender -> signed Checkpoint message (kept, not just the
+        # digest: view-change certificates re-ship these as proof of h)
+        self.checkpoints: Dict[int, Dict[str, Checkpoint]] = defaultdict(dict)
+        self.checkpoint_digests: Dict[int, str] = {}  # our own, by seq
+        self.snapshots: Dict[int, str] = {}  # our app snapshots, by seq
+        self.pending_sync: Optional[Tuple[int, str]] = None  # (seq, digest)
+        self.metrics: Dict[str, int] = defaultdict(int)
+        self.stats = ReplicaStats()  # histograms: sweep/verify/commit
+        # sampled phase-level request tracing (telemetry.RequestTracer):
+        # attached after construction by node.py / committee / bench; all
+        # hooks are no-ops while None, so steady-state cost is one
+        # attribute check per event
+        self.tracer = None
+        # online safety-invariant monitor (audit.SafetyAuditor):
+        # attached like the tracer; observes the signature-VERIFIED
+        # message stream plus local commit/checkpoint events and appends
+        # tamper-evident evidence records on equivocation/fork/divergence
+        self.auditor = None
+        # per-certificate vote-arrival order statistics (trace plane):
+        # arrival rank of every vote at decode time, (2f+1)-th-vs-slowest
+        # margin, straggler id. Always attached (all methods never-raise
+        # and O(1)); emits quorum ledger docs only when a span sink is
+        # configured, surfaces live margins via telemetry's quorum block
+        self.qstats = trace.QuorumStats(node_id)
+        self._replica_set = frozenset(cfg.replica_ids)
+        self._running = False
+        self._task: Optional[asyncio.Task] = None
+        self._ingest_task: Optional[asyncio.Task] = None
+        self._queue: Optional[asyncio.Queue] = None
+        self._stranded: List = []  # jobs orphaned by cancelling ingest
+        # backup-side buffer of relayed-but-unexecuted client requests:
+        # the failover evidence, and the new primary's starting backlog
+        self.relay_buffer: Dict[Tuple[str, int], Request] = {}
+        # NEW-VIEW pre-prepares beyond our lagging watermark window,
+        # replayed after state transfer advances stable_seq
+        self.vc_replay: Dict[int, PrePrepare] = {}
+        # blocks by digest: certificates ship digest-only pre-prepares
+        # (messages.PrePrepare.signing_payload), so installs refill from
+        # here; GC'd against the stable watermark via the seq binding
+        self.block_store: Dict[str, Tuple[int, List[Dict[str, Any]]]] = {}
+        # QC mode: lazily-built aggregate checkpoint certificates, by seq
+        # (built on first view-change need, not per stabilization)
+        self.checkpoint_qcs: Dict[int, QuorumCert] = {}
+        # detached re-issues awaiting a BlockReply: digest -> per-(view,
+        # seq) waiters. A digest can have MULTIPLE waiting slots (a
+        # Byzantine primary can get the same block prepared at two seqs,
+        # so two O-set entries share a digest) — one BlockReply must
+        # replay every waiter, not just the last one buffered.
+        self.block_pending: Dict[str, Dict[Tuple[int, int], PrePrepare]] = {}
+        self._fetch_rotation = 0  # rotating BlockFetch target window
+        self.vc = ViewChanger(self)
+        # QC mode: BLS share-signing key + per-(view, seq, phase) record of
+        # certificates this replica (as primary) already aggregated
+        self.bls_sk: Optional[int] = None
+        if cfg.qc_mode:
+            from ..crypto import bls
+
+            self.bls_sk = bls.keygen(seed)[0]
+        self._qc_sent: set = set()
+        # (sender, view) -> count of failed-pairing QCs (DoS rate bound)
+        self._qc_bad_by_sender: Dict[Tuple[str, int], int] = {}
+        # verified-GOOD signatures this replica has already checked, keyed
+        # (pubkey, sig, sha256(payload)) — the payload digest is part of
+        # the key so a replayed sig over different bytes never false-hits.
+        # The big win is failover: a NEW-VIEW embeds 2f+1 VIEW-CHANGEs
+        # the replica almost always verified individually moments before,
+        # so its verify batch shrinks from ~4f^2 signatures to the f+1
+        # genuinely new ones. Only positive verdicts are cached (a False
+        # must re-check: transient pubkey-config gaps must not stick).
+        # Lock: the ingest pipeline overlaps sweep k's verify with sweep
+        # k+1's, so two _timed_verify executor threads can touch the
+        # cache concurrently.
+        self._sig_cache: "OrderedDict[tuple, None]" = OrderedDict()
+        self._sig_cache_lock = threading.Lock()
+        self.SIG_CACHE_MAX = 16384
+        # position in the committee ring (designated-replier rotation)
+        self._index = cfg.replica_ids.index(node_id)
+        # per-client MAC keys for the point-to-point reply fast path
+        from ..crypto import mac as mac_mod
+
+        self._mac = mac_mod.MacBank(seed, cfg.kx_pubkeys)
+        # SlotFetch rate limiting: sender -> monotonic time last served
+        self._slot_fetch_served: Dict[str, float] = {}
+        # (sender, new_view, sig) -> validated VC (resend dedup at the
+        # target primary; see _batch_items)
+        self._vc_validation_cache: Dict[tuple, tuple] = {}
+        # verified block digest -> validated Request list (_validate_block)
+        self._decoded_blocks: Dict[str, List[Request]] = {}
+        # (client, ts) -> monotonic time of last cached-reply resend
+        self._reply_resent: Dict[Tuple[str, int], float] = {}
+        self._probe_rr = 0  # slot-probe target rotation
+        # the NEW-VIEW that installed our current view (view-sync serving)
+        self.last_new_view: Optional[NewView] = None
+        # highest seq with an observed commit certificate (committee
+        # liveness, independent of our own execution frontier)
+        self.max_committed_seen = 0
+        # monotonic clock of the last locally-executed block (0 = never):
+        # the progress watchdog's stall age and pbft_top's CAGE column
+        # read this instead of re-deriving progress from counter deltas
+        self.last_commit_mono = 0.0
+        # heartbeat evidence: sender -> clock of the last message that
+        # survived the sweep (signature-verified when verification is
+        # on). The view-change dead-target fast-path reads this — a
+        # peer silent for multiples of the view timeout WHILE others
+        # are loud is evidence-dead, and failover skips views whose
+        # primary it names (the search-found +369..+750 s tail:
+        # every live replica parked on a crashed primary's target view,
+        # retransmitting into silence up the 60 s backoff ladder).
+        self.peer_seen: Dict[str, float] = {}
+        self._boot_mono = 0.0
+        # chunked checkpoint state-transfer driver (consensus/statesync.py):
+        # both the requester side (watermark-gap / NEW-VIEW / cold-start
+        # rejoin catch-up) and the server side (peers' chunk requests)
+        self.statesync = StateSync(self)
+        # speculative pipelined execution (consensus/
+        # speculation.py): blocks execute against a forkable app state
+        # at PREPARED and reply early with a signed speculative mark;
+        # divergence (a view change replacing the block) rolls the
+        # speculated suffix back to the committed anchor. None when the
+        # committee disables it (cfg.speculative=False A/B arms).
+        self.spec: Optional[SpeculationEngine] = (
+            SpeculationEngine(self) if cfg.speculative else None
+        )
+        # staged membership change: (activation_seq, new CommitteeConfig).
+        # Set by an executed __reconfig__ op; applied when execution
+        # reaches the checkpoint boundary activation_seq. Part of
+        # checkpoint state (rides every snapshot) — a state-transferred
+        # replica must inherit the staged change or its next boundary
+        # would diverge from the committee's.
+        self.pending_reconfig: Optional[Tuple[int, CommitteeConfig]] = None
+        # True once an epoch activated WITHOUT this replica: a retired
+        # member stops voting/proposing/replying but keeps serving
+        # state-transfer chunks and config lookups until shut down
+        self.retired = False
+        # byzantine seam (faults.StaleEpochVoter): a replica that REFUSES
+        # its retirement never sets `retired`, so its stale-epoch votes
+        # actually leave the process and hit the honest peers' role gate
+        self.refuse_retirement = False
+
+    def _auth_reply(self, reply: Reply) -> None:
+        """Authenticate a reply: per-client HMAC when BOTH ends publish kx
+        keys (~2 us) — the client derives the same key from OUR published
+        kx pubkey, so a replica absent from kx_pubkeys must sign instead
+        or its MAC'd replies are undecipherable. Ed25519 otherwise."""
+        from ..crypto import mac as mac_mod
+
+        key = (
+            self._mac.key_for(reply.client_id)
+            if self.id in self.cfg.kx_pubkeys
+            else None
+        )
+        if key is not None:
+            reply.sender = self.id
+            reply.mac = mac_mod.tag(key, reply.signing_payload())
+        else:
+            self.signer.sign_msg(reply)
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    @property
+    def is_primary(self) -> bool:
+        return self.cfg.primary(self.view) == self.id
+
+    def start(self) -> None:
+        self._running = True
+        # silence is judged from boot, not from epoch 0: a peer we have
+        # never heard from is "silent since boot", so an idle committee
+        # (nobody heard from anybody) never looks dead
+        self._boot_mono = clock.now()
+        loop = asyncio.get_running_loop()
+        self._queue = asyncio.Queue(maxsize=1)
+        self._stranded = []
+        self._ingest_task = loop.create_task(self._ingest())
+        self._task = loop.create_task(self._route_loop())
+
+    async def stop(self) -> None:
+        """Graceful: stop ingesting new traffic, then let the route loop
+        DRAIN sweeps already decoded or in the verify thread before
+        exiting — a sweep that entered the pipeline is never dropped by a
+        clean shutdown (crash-stop loses only what the network would have
+        lost anyway)."""
+        self._running = False
+        self.vc.cancel()
+        self.statesync.cancel()
+        if self._ingest_task:
+            self._ingest_task.cancel()
+            try:
+                await self._ingest_task
+            except asyncio.CancelledError:
+                pass
+        if self._task:
+            try:
+                # sentinel wakes the route loop if it is idle
+                self._queue.put_nowait(None)
+            except asyncio.QueueFull:
+                pass
+            try:
+                await asyncio.wait_for(self._task, timeout=10.0)
+            except (asyncio.TimeoutError, asyncio.CancelledError):
+                self._task.cancel()
+                try:
+                    await self._task
+                except asyncio.CancelledError:
+                    pass
+
+    def kill(self) -> None:
+        """Crash-stop: abort immediately, dropping everything in flight.
+        This is the failure model benchmarks and fault-injection tests
+        mean by "crash the primary" — stop() is the orderly drain."""
+        self._running = False
+        self.vc.cancel()
+        self.statesync.cancel()
+        for t in (self._ingest_task, self._task):
+            if t is not None:
+                t.cancel()
+        self._stranded.clear()
+
+    def has_outstanding_work(self) -> bool:
+        """Is there client work this replica is waiting on the committee
+        for? (The condition under which a stalled view must be abandoned.)
+
+        Counts queued/relayed requests AND in-flight proposals: a primary
+        moves requests out of pending_requests when it proposes, so a
+        stalled commit (e.g. a frozen peer starving the quorum) must
+        still register as outstanding or the failover timer fires into a
+        no-op and the view wedges."""
+        if self.relay_buffer or self.pending_requests:
+            return True
+        if self.block_pending:
+            # detached re-issues awaiting a block fetch: if no peer ever
+            # answers, the timer must fire and move the view again
+            return True
+        # NOTE: ready-holes (later blocks parked behind an execution gap)
+        # deliberately do NOT count: they are LOCAL damage the slot probe
+        # repairs, and arming the failover timer on them synchronizes
+        # stalled replicas into f+1 join cascades — measured at n=64/QC
+        # with 2% drop: committee-wide failover thrash, throughput halved.
+        # The probe chain handles them via ViewChanger._probe's ready check.
+        # only CURRENT-view proposals count: an orphan pre-prepare from a
+        # dead view (primary crashed pre-quorum, O-set dropped the seq) is
+        # abandoned work — counting it would arm the failover timer
+        # forever with zero client work behind it
+        return any(
+            inst.pre_prepare is not None
+            and not inst.executed
+            and inst.seq > self.executed_seq
+            and inst.view == self.view
+            for inst in self.instances.values()
+        )
+
+    def adopt_relayed_requests(self) -> None:
+        """On becoming primary: everything relayed and still unexecuted
+        becomes our proposal backlog."""
+        for key, req in sorted(self.relay_buffer.items()):
+            if req.timestamp > self.client_watermark.get(req.client_id, 0):
+                self.pending_requests.append(req)
+                self.seen_requests[key] = 0  # now owned by our pipeline
+        self.relay_buffer.clear()
+
+    async def rerelay_outstanding(self, new_view: int) -> None:
+        """A NEW-VIEW installed and we are NOT its primary: client work
+        stranded HERE must chase the new primary or it is lost to the
+        committee. Two pools strand (measured, qc-n64 chaos tail —
+        unanimous view, idle primary, 128 starving clients):
+        (1) pending_requests queued while WE were primary — a deposed
+        primary's backlog never feeds another replica's proposal;
+        (2) relay_buffer entries sent exactly once to a primary that
+        died with its view. Re-relay is capped per install; client
+        retries plus the primary's requeue path cover any overflow."""
+        for req in self.pending_requests:
+            k = (req.client_id, req.timestamp)
+            # -1 unconditionally: our pipeline no longer owns this key.
+            # Even when the relay buffer is at cap and the request is
+            # dropped outright, the -1 keeps the primary-side requeue
+            # path willing to re-adopt it from a client retry (0 would
+            # claim an ownership no pool backs).
+            self.seen_requests[k] = -1
+            if k not in self.relay_buffer and len(self.relay_buffer) < 65536:
+                self.relay_buffer[k] = req
+        self.pending_requests = []
+        primary = self.cfg.primary(new_view)
+        sent = 0
+        for key, req in sorted(self.relay_buffer.items()):
+            if req.timestamp <= self.client_watermark.get(req.client_id, 0):
+                continue
+            await self.transport.send(primary, req.to_wire())
+            sent += 1
+            if sent >= 512:
+                break
+        if sent:
+            self.metrics["requests_rerelayed"] += sent
+
+    async def _ingest(self) -> None:
+        """Stage 1 of the runtime pipeline: drain the transport, decode,
+        and launch the signature batch-verify off-loop in a worker thread.
+        The queue depth of 1 in-flight job means the verifier — a TPU
+        round trip in the `tpu` backend — overlaps with draining and
+        decoding the next sweep, and the event loop itself never blocks
+        on the device (SURVEY.md §7 "pipeline verify of round k+1 with
+        round k's commits"; VERDICT round-1 weak #6)."""
+        while self._running:
+            raw = await self.transport.recv()
+            sweep = [raw]
+            while len(sweep) < self.max_drain:
+                nxt = self.transport.recv_nowait()
+                if nxt is None:
+                    break
+                sweep.append(nxt)
+            try:
+                job = self._start_sweep(sweep)
+            except Exception:
+                log.exception("%s: sweep decode failed", self.id)
+                self.metrics["sweep_errors"] += 1
+                continue
+            try:
+                await self._queue.put(job)
+            except asyncio.CancelledError:
+                # stop() cancelled us while the queue was full: this job's
+                # verify is already running — strand it for the route
+                # loop's drain instead of dropping it
+                self._stranded.append(job)
+                raise
+
+    async def _route_loop(self) -> None:
+        """Stage 2: await each sweep's verdict bitmap, route survivors,
+        propose. Exits only when stopped AND the pipeline is drained
+        (queued jobs plus any job stranded by cancelling ingest mid-put)."""
+        while True:
+            if self._running:
+                job = await self._queue.get()  # woken by stop()'s sentinel
+                jobs = [job]
+            else:
+                jobs = []
+            while True:  # opportunistic drain (bounded by queue size)
+                try:
+                    jobs.append(self._queue.get_nowait())
+                except asyncio.QueueEmpty:
+                    break
+            if not self._running:
+                jobs.extend(self._stranded)  # ingest cancelled mid-put
+                self._stranded.clear()
+            for j in jobs:
+                if j is None:
+                    continue  # stop() sentinel
+                try:
+                    await self._finish_sweep(*j)
+                except asyncio.CancelledError:
+                    raise
+                except Exception:
+                    # a replica must never die from one hostile/buggy sweep
+                    log.exception("%s: sweep processing failed", self.id)
+                    self.metrics["sweep_errors"] += 1
+            if not self._running and self._queue.empty() and not self._stranded:
+                return
+
+    # ------------------------------------------------------------------
+    # the verify seam: decode sweep -> one batch verify -> route
+    # ------------------------------------------------------------------
+
+    def _start_sweep(self, sweep: List[bytes]):
+        """Decode a sweep and launch its signature verification in a
+        worker thread (hashlib and the device round trip both release the
+        GIL / the loop). Returns (decoded, sig_spans, verify_task |
+        None). The per-message item ranges are named sig_spans: a local
+        called ``spans`` shadows the telemetry module imported above
+        (pbftlint PBL004 caught exactly that wart here)."""
+        decoded: List[Message] = []
+        for raw in sweep:
+            try:
+                msg = Message.from_wire(raw)
+            except ValueError:
+                self.metrics["malformed"] += 1
+                continue
+            decoded.append(msg)
+            # vote-arrival capture for the trace plane's quorum-margin
+            # statistics. Deliberately HERE — at decode, pre-verification
+            # and pre-shed — because post-quorum straggler votes are
+            # dropped by the _batch_items precheck and never reach
+            # _on_phase, yet their arrival time is exactly the straggler
+            # headroom being measured. Sender ids are unverified at this
+            # point; QuorumStats dedupes per sender and bounds its table.
+            if isinstance(msg, Prepare):
+                self.qstats.note_vote("prepare", msg.view, msg.seq, msg.sender)
+            elif isinstance(msg, Commit):
+                self.qstats.note_vote("commit", msg.view, msg.seq, msg.sender)
+        decoded = self._shed_for_overload(decoded)
+        self.stats.sweep_size.record(len(sweep))
+        sig_spans: List[Tuple[int, int]] = []
+        verify_task = None
+        if decoded and self.cfg.verify_signatures:
+            items: List[BatchItem] = []
+            for msg in decoded:
+                start = len(items)
+                items.extend(self._batch_items(msg))
+                sig_spans.append((start, len(items)))
+            if items:
+                if hasattr(self.verifier, "submit"):
+                    # coalescing service (crypto/coalesce.py): await the
+                    # future directly — no executor thread parks on the
+                    # device RTT, so EVERY replica in the process can
+                    # have a sweep in flight at once and the service
+                    # folds them into one device pass (the default
+                    # thread pool's ~5 workers were a hidden cap on how
+                    # many replicas' sweeps could even be pending)
+                    verify_task = asyncio.get_running_loop().create_task(
+                        self._submit_verify(items)
+                    )
+                else:
+                    verify_task = asyncio.get_running_loop().create_task(
+                        clock.off_thread(self._timed_verify, items)
+                    )
+            self.metrics["verified_sigs"] += len(items)
+        return decoded, sig_spans, verify_task
+
+    def _shed_for_overload(self, decoded: List[Message]) -> List[Message]:
+        """Priority-class load shedding. A sweep past
+        the shed watermark means the replica is draining slower than
+        traffic arrives; processing everything would push verify latency
+        (and with it every quorum gate) unboundedly. Keep ALL
+        quorum-critical messages (pre-prepare/prepare/commit/checkpoint/
+        view-change/QC and requested repair payloads), fill the remaining
+        budget with deferrable ones (client requests, fetch/probe asks)
+        in arrival order, and drop the rest — every dropped class has a
+        sender-side retry (client backoff rebroadcast, probe re-fire), so
+        shedding converts unbounded latency into bounded retries. The
+        degraded_mode metric is a level, not a counter: 1 while shedding,
+        back to 0 on the first comfortable sweep."""
+        if len(decoded) <= self.shed_watermark:
+            if self.metrics.get("degraded_mode") and (
+                len(decoded) <= self.shed_watermark // 2
+            ):
+                self.metrics["degraded_mode"] = 0
+            return decoded
+        critical = [m for m in decoded if not isinstance(m, SHED_DEFERRABLE)]
+        budget = max(0, self.shed_watermark - len(critical))
+        kept = critical
+        deferred = [m for m in decoded if isinstance(m, SHED_DEFERRABLE)]
+        if "shed_bulk_bias" in DEFECTS:
+            # planted fairness bug (see DEFECTS): biggest payload first
+            deferred = sorted(
+                deferred,
+                key=lambda m: -len(getattr(m, "operation", "") or ""),
+            )
+        if budget:
+            # arrival order preserved within the class; the merge below
+            # keeps overall order too (stable filter + index sort)
+            kept = critical + deferred[:budget]
+            order = {id(m): i for i, m in enumerate(decoded)}
+            kept.sort(key=lambda m: order[id(m)])
+        shed = len(decoded) - len(kept)
+        if shed:
+            self.metrics["messages_shed"] += shed
+            self.metrics["degraded_mode"] = 1
+        return kept
+
+    def _cache_filter(self, items: List[BatchItem]):
+        """Split a sweep's items into cache hits (already-verified-good)
+        and fresh work. Returns (out bitmap with hits set, fresh items,
+        their (position, cache-key) pairs)."""
+        out = [False] * len(items)
+        cache = self._sig_cache
+        fresh: List[BatchItem] = []
+        fresh_keys: List[Tuple[int, tuple]] = []
+        keys = [
+            (it.pubkey, it.sig, hashlib.sha256(it.msg).digest())
+            for it in items
+        ]
+        with self._sig_cache_lock:
+            for i, (it, key) in enumerate(zip(items, keys)):
+                if key in cache:
+                    cache.move_to_end(key)
+                    out[i] = True
+                else:
+                    fresh.append(it)
+                    fresh_keys.append((i, key))
+        return out, fresh, fresh_keys
+
+    def _cache_store(self, fresh_keys, verdicts, out: List[bool]) -> None:
+        """Fold fresh verdicts into the bitmap and the positive cache."""
+        cache = self._sig_cache
+        with self._sig_cache_lock:
+            for (i, key), ok in zip(fresh_keys, verdicts):
+                out[i] = bool(ok)
+                if ok:
+                    cache[key] = None
+            while len(cache) > self.SIG_CACHE_MAX:
+                cache.popitem(last=False)
+
+    def _record_verify(self, n_fresh: int, dt: float) -> None:
+        # cache-hit-only sweeps never reach the device; recording
+        # their ~0 ms samples would dilute verify batch-size and
+        # latency stats toward zero
+        if n_fresh:
+            self.stats.verify_ms.record(dt * 1e3)
+            self.stats.verify_items += n_fresh
+            self.stats.verify_seconds += dt
+            # the replica's seat at the verify pipeline: the full round
+            # trip a sweep pays (service queue + device/CPU pass +
+            # resolution) — compare against verify.queue/verify.device
+            # to see where inside the service the wait lives
+            spans.record(
+                spans.REPLICA_VERIFY_WAIT, dt, node=self.id, n=n_fresh
+            )
+
+    def _timed_verify(self, items: List[BatchItem]) -> List[bool]:
+        """Worker-thread wrapper: one verifier call, instrumented so
+        verifies/s and per-batch latency are observable (VERDICT weak #8).
+        Already-verified signatures answer from the per-replica cache
+        (locked: the pipeline overlaps consecutive sweeps' verifies in
+        separate executor threads)."""
+        t0 = clock.now()
+        out, fresh, fresh_keys = self._cache_filter(items)
+        if fresh:
+            verdicts = self.verifier.verify_batch(fresh)
+            self._cache_store(fresh_keys, verdicts, out)
+        self.metrics["sig_cache_hits"] += len(items) - len(fresh)
+        self._record_verify(len(fresh), clock.now() - t0)
+        return out
+
+    async def _submit_verify(self, items: List[BatchItem]) -> List[bool]:
+        """Coalescing-service path: submit the fresh work and await the
+        future — the event loop stays free, and concurrent replicas'
+        sweeps ride the same device pass (crypto/coalesce.py)."""
+        t0 = clock.now()
+        if len(items) > 256:
+            # the filter hashes every item (sha256 cache keys) — a full
+            # 4096-item sweep is multiple ms, too long to hold the loop
+            # that every replica in the process shares; small sweeps stay
+            # inline (a thread handoff costs more than the hashing)
+            out, fresh, fresh_keys = await clock.off_thread(
+                self._cache_filter, items
+            )
+        else:
+            out, fresh, fresh_keys = self._cache_filter(items)
+        if fresh:
+            verdicts = await asyncio.wrap_future(self.verifier.submit(fresh))
+            self._cache_store(fresh_keys, verdicts, out)
+        self.metrics["sig_cache_hits"] += len(items) - len(fresh)
+        self._record_verify(len(fresh), clock.now() - t0)
+        return out
+
+    async def _finish_sweep(self, decoded, sig_spans, verify_task) -> None:
+        if not decoded:
+            return
+        t0 = clock.now()
+        accepted = decoded
+        if self.cfg.verify_signatures:
+            try:
+                bitmap = await verify_task if verify_task is not None else []
+            except Overloaded:
+                # the verify service admission-rejected this sweep: shed
+                # it whole. Every sender has a retry path (clients back
+                # off and rebroadcast, peers' probes re-fire), so the
+                # work recovers once the pile drains — meanwhile this
+                # replica must not queue more verify demand.
+                self.metrics["sweeps_shed_overload"] += 1
+                self.metrics["messages_shed"] += len(decoded)
+                self.metrics["degraded_mode"] = 1
+                return
+            accepted = []
+            for msg, (s, e) in zip(decoded, sig_spans):
+                if s == e:
+                    # structurally inadmissible or redundant (no signature
+                    # items were even collected) — NOT a forged signature;
+                    # keeping bad_sig clean of these preserves it as the
+                    # Byzantine-signature alarm
+                    self.metrics["dropped_precheck"] += 1
+                elif all(bitmap[s:e]):
+                    accepted.append(msg)
+                else:
+                    self.metrics["bad_sig"] += 1
+        for msg in accepted:
+            if self.auditor is not None:
+                # the audit tap: every message past signature verification
+                # (QuorumCerts are audited post-pairing in _on_qc instead —
+                # an unverified aggregate must never become evidence)
+                self.auditor.observe_message(msg)
+            if msg.sender in self._replica_set:
+                # heartbeat evidence for the dead-target fast-path: any
+                # surviving message from a committee member proves it
+                # alive NOW (one dict store; read by ViewChanger)
+                self.peer_seen[msg.sender] = clock.now()
+            await self._route(msg)
+        await self._propose_if_ready()
+        self.stats.sweep_ms.record((clock.now() - t0) * 1e3)
+
+    async def process_sweep(self, sweep: List[bytes]) -> None:
+        """Decode a sweep of wire messages, batch-verify every signature in
+        it with ONE verifier call, then route the survivors. (Direct-drive
+        entry for tests; the runtime pipelines the same two halves.)"""
+        decoded, sig_spans, verify_task = self._start_sweep(sweep)
+        await self._finish_sweep(decoded, sig_spans, verify_task)
+
+    def _batch_items(self, msg: Message) -> List[BatchItem]:
+        """Signature obligations for one message. An empty return means the
+        message is structurally inadmissible and must be rejected (unknown
+        sender, role violation, malformed sig/block)."""
+        # Role separation — consensus-plane messages may only come from
+        # committee members; client keys must never count toward quorums.
+        if isinstance(
+            msg,
+            (PrePrepare, Prepare, Commit, Checkpoint, ViewChange, NewView,
+             QuorumCert, StateRequest, StateResponse, BlockFetch, BlockReply,
+             SlotFetch, NewViewFetch, StateChunkRequest, StateChunkReply),
+        ):
+            if msg.sender not in self._replica_set:
+                return []
+        elif isinstance(msg, Request):
+            # a client only speaks for itself (relayed requests keep the
+            # original client signature, so sender stays the client)
+            if msg.sender != msg.client_id:
+                return []
+        if isinstance(msg, (Prepare, Commit)):
+            # the instance already has this phase settled: the vote is
+            # redundant — verifying the straggler (n - 2f - 1) votes per
+            # phase was ~a third of the O(n^2) vote work at n=100. Only
+            # post-quorum arrivals are dropped, so a vote flood can't
+            # crowd honest votes out of quorum formation. In QC mode
+            # "settled" means the phase's aggregate EXISTS: a vote-count
+            # quorum is not enough, because a poisoned share bisected
+            # out of the first 2f+1 means the primary still needs the
+            # late stragglers' shares to rebuild the aggregate.
+            inst = self.instances.get((msg.view, msg.seq))
+            if inst is not None:
+                if self.cfg.qc_mode:
+                    settled = (
+                        inst.commit_qc if isinstance(msg, Commit)
+                        else inst.prepare_qc
+                    ) is not None
+                else:
+                    settled = (
+                        inst.committed() if isinstance(msg, Commit)
+                        else inst.prepared()
+                    )
+                if settled:
+                    self.metrics["redundant_votes_dropped"] += 1
+                    return []
+        pub = self.cfg.pubkey(msg.sender)
+        if pub is None or not msg.sig:
+            return []
+        try:
+            sig = bytes.fromhex(msg.sig)
+        except ValueError:
+            return []
+        items = [BatchItem(pubkey=pub, msg=msg.signing_payload(), sig=sig)]
+        if isinstance(msg, PrePrepare):
+            # a proposal also carries client signatures for every request
+            reqs = self._validate_block(msg.block, msg.digest)
+            if reqs is None:
+                return []
+            for req in reqs:
+                items.append(
+                    BatchItem(
+                        pubkey=self.cfg.pubkey(req.sender),
+                        msg=req.signing_payload(),
+                        sig=bytes.fromhex(req.sig),
+                    )
+                )
+        elif isinstance(msg, ViewChange):
+            # Only the TARGET VIEW'S PRIMARY consumes a VIEW-CHANGE's
+            # nested certificates (to build its NEW-VIEW); backups use
+            # the message solely for the f+1 join rule and for counting
+            # toward the primary's quorum — envelope signature suffices
+            # (join counts authenticated senders; proofs are re-validated
+            # by every receiver inside the NEW-VIEW). Full validation at
+            # every backup measured ~40% of a 64-replica storm round's
+            # CPU (n^2 certificate walks on one host).
+            if self.cfg.primary(msg.new_view) == self.id:
+                # Retransmissions are byte-identical (senders re-send the
+                # same certificate on timer expiry): memoize by the
+                # envelope signature so a storm of resends costs one
+                # structural walk, not one per wave (the walk at the
+                # target primary was a measurable slice of the n=64
+                # congestion-collapse wedge).
+                ck = (msg.sender, msg.new_view, msg.sig)
+                res = self._vc_validation_cache.get(ck)
+                if res is None:
+                    res = validate_view_change(
+                        self.cfg, msg, current_view_floor=0
+                    )
+                    if res is not None:
+                        if len(self._vc_validation_cache) >= 128:
+                            self._vc_validation_cache.pop(
+                                next(iter(self._vc_validation_cache))
+                            )
+                        self._vc_validation_cache[ck] = res
+                if res is None:
+                    # distinct from dropped_precheck: a failover CANNOT
+                    # complete while the target primary rejects VCs, so
+                    # this must be visible in a wedge post-mortem
+                    self.metrics["bad_viewchange_precheck"] += 1
+                    return []
+                msg._validated = res  # skip re-validation in on_view_change
+                items.extend(res[2])
+        elif isinstance(msg, NewView):
+            res = validate_new_view(self.cfg, msg)
+            if res is None:
+                self.metrics["bad_newview_precheck"] += 1
+                if self.auditor is not None:
+                    # an invalid certificate under the primary's envelope
+                    # signature is evidence; the auditor re-verifies the
+                    # (not-yet-batch-checked) envelope before recording
+                    self.auditor.observe_rejected_new_view(msg)
+                return []
+            msg._validated = res
+            items.extend(res[1])
+        return items
+
+    MAX_DECODED_BLOCKS = 2048  # digest -> validated Request list cache
+
+    def _validate_block(self, block, digest: str = None) -> Optional[List[Request]]:
+        """Structural admission for a proposed block: every entry decodes to
+        a Request whose sender is the client it claims to be and whose
+        signature field is well-formed. Runs regardless of signature mode so
+        a hostile block can never reach execution type-confused.
+
+        A block is validated up to three times per replica (signature-item
+        collection, phase admission, ordered execution), so callers pass
+        the digest for a cache LOOKUP. Insertion happens ONLY at sites
+        where digest <-> block binding has been verified (_remember_block
+        — instance admission checks block_digest): caching on a claimed,
+        unverified digest would let a hostile pre-prepare poison the
+        entry an honest block later matches."""
+        if digest is not None:
+            hit = self._decoded_blocks.get(digest)
+            if hit is not None:
+                return hit
+        reqs: List[Request] = []
+        for rd in block:
+            try:
+                # the enclosing pre-prepare was depth-checked at from_wire
+                req = Message.from_dict(rd, _depth_checked=True)
+            except ValueError:
+                return None
+            if not isinstance(req, Request) or req.sender != req.client_id:
+                return None
+            if self.cfg.pubkey(req.sender) is None or not req.sig:
+                return None
+            try:
+                bytes.fromhex(req.sig)
+            except ValueError:
+                return None
+            reqs.append(req)
+        return reqs
+
+    def _remember_block(self, digest: str, reqs: List[Request]) -> None:
+        """Cache a validated block decode under a VERIFIED digest."""
+        if len(self._decoded_blocks) >= self.MAX_DECODED_BLOCKS:
+            self._decoded_blocks.pop(next(iter(self._decoded_blocks)))
+        self._decoded_blocks[digest] = reqs
+
+    # ------------------------------------------------------------------
+    # routing
+    # ------------------------------------------------------------------
+
+    async def _route(self, msg: Message) -> None:
+        if isinstance(msg, Request):
+            await self._on_request(msg)
+        elif isinstance(msg, (PrePrepare, Prepare, Commit)):
+            await self._on_phase(msg)
+        elif isinstance(msg, QuorumCert):
+            await self._on_qc(msg)
+        elif isinstance(msg, Checkpoint):
+            await self._on_checkpoint(msg)
+        elif isinstance(msg, StateRequest):
+            await self._on_state_request(msg)
+        elif isinstance(msg, StateResponse):
+            await self._on_state_response(msg)
+        elif isinstance(msg, StateChunkRequest):
+            await self.statesync.on_chunk_request(msg)
+        elif isinstance(msg, StateChunkReply):
+            await self.statesync.on_chunk_reply(msg)
+        elif isinstance(msg, ConfigFetch):
+            await self._on_config_fetch(msg)
+        elif isinstance(msg, BlockFetch):
+            await self._on_block_fetch(msg)
+        elif isinstance(msg, BlockReply):
+            await self._on_block_reply(msg)
+        elif isinstance(msg, SlotFetch):
+            await self._on_slot_fetch(msg)
+        elif isinstance(msg, NewViewFetch):
+            await self._on_new_view_fetch(msg)
+        elif isinstance(msg, (ViewChange, NewView)):
+            await self._on_view_message(msg)
+        else:
+            self.metrics["unroutable"] += 1
+
+    def _in_window(self, seq: int) -> bool:
+        return self.stable_seq < seq <= self.stable_seq + self.cfg.watermark_window
+
+    def _instance(self, view: int, seq: int) -> Instance:
+        key = (view, seq)
+        inst = self.instances.get(key)
+        if inst is None:
+            inst = Instance(
+                view=view,
+                seq=seq,
+                quorum=self.cfg.quorum,
+                primary=self.cfg.primary(view),
+                qc_mode=self.cfg.qc_mode,
+            )
+            self.instances[key] = inst
+        return inst
+
+    # ------------------------------------------------------------------
+    # client requests (primary: batch into blocks; backup: forward)
+    # ------------------------------------------------------------------
+
+    async def _on_request(self, req: Request) -> None:
+        key = (req.client_id, req.timestamp)
+        floor = self.client_watermark.get(req.client_id, 0)
+        recent = self.recent_replies.get(req.client_id, {})
+        if (
+            req.timestamp <= floor
+            or req.timestamp in recent
+            or key in self.seen_requests
+        ):
+            # duplicate: re-send the cached reply if we already executed it
+            cached = recent.get(req.timestamp)
+            if cached is not None:
+                # Cooldown per (client, ts): a retry BROADCAST otherwise
+                # makes every replica answer at once — 61 replies per
+                # retry wave per request where the client needs f+1.
+                # Measured in 3-crash storms: the reply flood from 128
+                # retrying clients kept failover queues thousands deep
+                # exactly while the new view was forming. First answer is
+                # always immediate; repeats within the window are dropped
+                # (the client's next 4.5 s retry beats a 1 s cooldown).
+                now = clock.now()
+                if now - self._reply_resent.get(key, 0.0) < 1.0:
+                    self.metrics["reply_resend_squelched"] += 1
+                    return
+                # delete-then-reinsert keeps the dict insertion-ordered by
+                # RECENCY, so cap eviction drops the coldest key, not a
+                # hot one refreshed milliseconds ago
+                self._reply_resent.pop(key, None)
+                if len(self._reply_resent) >= 8192:
+                    self._reply_resent.pop(next(iter(self._reply_resent)))
+                self._reply_resent[key] = now
+                if not cached.sig and not cached.mac:
+                    # cached by a non-designated replier: authenticate now
+                    self._auth_reply(cached)
+                await self.transport.send(req.client_id, cached.to_wire())
+            elif key in self.relay_buffer or key in self.seen_requests:
+                # client is retrying something still unexecuted: the
+                # primary may be faulty — (re)arm the failover timer
+                self.metrics["request_retries_seen"] += 1
+                self.vc.arm()
+                if self.is_primary and not self.vc.in_view_change:
+                    # Retry landed at the CURRENT primary: dedup alone
+                    # would strand it (measured, qc-n64 chaos tail: a
+                    # unanimous post-failover committee, idle primary,
+                    # every client starving — the work was "seen" in a
+                    # dead view so nobody ever re-proposed it).
+                    s = self.seen_requests.get(key, 0)
+                    if key in self.relay_buffer or s == -1:
+                        # seen as a BACKUP (relayed to a primary that
+                        # died with its view): we own the slot now
+                        self.pending_requests.append(
+                            self.relay_buffer.pop(key, req)
+                        )
+                        self.seen_requests[key] = 0
+                        self.metrics["requests_requeued"] += 1
+                    elif s > 0 and (
+                        s <= self.executed_seq
+                        or (
+                            s not in self.ready
+                            and (self.view, s) not in self.instances
+                        )
+                    ):
+                        # Assigned to a slot that died with an old view
+                        # (only PRE_PREPARED there, so no prepared proof
+                        # reached the O-set) — or to a slot the O-set
+                        # NO-OP-REFILLED and already executed: this
+                        # branch only runs with no cached reply and
+                        # ts above the fold, so an executed slot that
+                        # produced no reply for this request provably
+                        # did not contain it. Requeue for this view.
+                        self.seen_requests[key] = 0
+                        self.pending_requests.append(req)
+                        self.metrics["requests_requeued"] += 1
+            elif req.timestamp <= floor:
+                # below the fold with no cached reply and no in-flight
+                # trace: the reply was folded away (or the slot lost to
+                # the fold) — answer definitively instead of leaving the
+                # retry unanswered (deterministic across honest replicas:
+                # floor and reply cache are checkpoint state)
+                await self._send_superseded(self.view, self.stable_seq, req)
+            return
+        if self.tracer is not None and (
+            rid := self.tracer.rid_if_sampled(req.client_id, req.timestamp)
+        ):
+            # lifecycle phase 1: the request entered this replica fresh
+            self.tracer.emit(
+                "request", rid,
+                role="primary" if self.is_primary else "backup",
+                view=self.view,
+            )
+        if self.is_primary:
+            self.seen_requests[key] = 0  # 0 = queued, not yet assigned
+            self.pending_requests.append(req)
+            self.vc.arm()
+        else:
+            # backup: relay to the primary (client may have broadcast after
+            # a timeout), remember it as failover evidence, arm the timer.
+            # -1 = relayed, NOT in our pending queue: if we later become
+            # primary, a client retry must requeue it (0 would claim the
+            # proposal pipeline already owns it)
+            self.seen_requests[key] = -1
+            if len(self.relay_buffer) < 65536:  # bounded
+                self.relay_buffer[key] = req
+            self.vc.arm()
+            await self.transport.send(
+                self.cfg.primary(self.view), req.to_wire()
+            )
+
+    async def _propose_if_ready(self) -> None:
+        """Primary: cut ALL pending requests into one block and propose.
+        One proposal per sweep keeps pipelining (many seqs in flight)
+        while batching whatever queued up since the last sweep."""
+        if self.vc.in_view_change:
+            return
+        if not self.is_primary or not self.pending_requests:
+            return
+        if not self._in_window(self.next_seq):
+            self.metrics["window_stall"] += 1
+            return
+        if (
+            self.pending_reconfig is not None
+            and self.next_seq > self.pending_reconfig[0]
+        ):
+            # stop-sequence: a slot past a staged membership boundary
+            # belongs to the NEXT epoch — proposing it now would let the
+            # OLD committee's quorum decide a new-epoch slot. Hold until
+            # activation (one checkpoint interval at most).
+            self.metrics["reconfig_boundary_stall"] += 1
+            return
+        block_reqs = self.pending_requests[: self.cfg.max_batch]
+        self.pending_requests = self.pending_requests[self.cfg.max_batch :]
+        seq = self.next_seq
+        self.next_seq += 1
+        block = [r.to_dict() for r in block_reqs]
+        for r in block_reqs:
+            self.seen_requests[(r.client_id, r.timestamp)] = seq
+        pp = PrePrepare(
+            view=self.view,
+            seq=seq,
+            digest=PrePrepare.block_digest(block),
+            block=block,
+        )
+        self.signer.sign_msg(pp)
+        self.metrics["proposed_blocks"] += 1
+        self.metrics["proposed_requests"] += len(block)
+        if self.auditor is not None:
+            # our own proposal never transits _finish_sweep: log it so the
+            # cross-node ledger holds the primary's own signed record too
+            self.auditor.observe_message(pp)
+        # trace envelope (unsigned, outside the signed fields — decode
+        # drops it before payload reconstruction) on the freshly signed
+        # wire frame; no-op unless the trace plane is enabled
+        pp_wire = trace.stamp(pp.to_wire(), trace.PREPREPARE, pp.view, seq, self.id)
+        await self.transport.broadcast(pp_wire, self.cfg.replica_ids)
+        await self._on_phase(pp)  # self-delivery
+
+    # ------------------------------------------------------------------
+    # consensus phases
+    # ------------------------------------------------------------------
+
+    async def _on_phase(self, msg) -> None:
+        frozen = self.vc.in_view_change
+        if frozen:
+            # Between VIEW-CHANGE and NEW-VIEW, PREPARED STATE must not
+            # change: the frozen P-set claim in our certificate is what
+            # makes stale VIEW-CHANGEs safe to count toward a later
+            # NEW-VIEW (quorum intersection — a frozen replica provably
+            # prepared nothing after its certificate). But EXECUTION may
+            # proceed: commitment is final in every view, so adopting a
+            # block for a slot that already holds a commit QC, or
+            # counting commits toward an already-prepared slot, only
+            # lets a locally-stalled replica catch up while frozen.
+            # Without this a replica whose view change the healthy
+            # committee never joins was deaf forever (the round-3
+            # qc-n64 chaos stall: replica_exec_min = 0). Prepares stay
+            # frozen; action lists are filtered to execution below.
+            if msg.view > self.view:
+                # a frozen replica especially needs the view-sync hint:
+                # traffic from a view ahead means the NEW-VIEW it is
+                # waiting for (or a later one) already exists
+                self.vc.note_higher_view(msg.view)
+            allow = (
+                not isinstance(msg, Prepare)
+                and msg.view == self.view
+                and self._in_window(msg.seq)
+            )
+            if allow and isinstance(msg, PrePrepare):
+                inst0 = self.instances.get((msg.view, msg.seq))
+                allow = inst0 is not None and inst0.commit_qc is not None
+            if not allow:
+                self.metrics["dropped_in_viewchange"] += 1
+                return
+        if msg.view != self.view:
+            if msg.view > self.view:
+                # verified traffic from a view ahead of us: a NEW-VIEW we
+                # never received exists — the probe fetches it
+                self.vc.note_higher_view(msg.view)
+            self.metrics["wrong_view"] += 1
+            return
+        if not self._in_window(msg.seq):
+            self.metrics["out_of_window"] += 1
+            return
+        if (
+            isinstance(msg, PrePrepare)
+            and self.pending_reconfig is not None
+            and msg.seq > self.pending_reconfig[0]
+        ):
+            # stop-sequence (backup side): refuse to admit a proposal for
+            # a slot past the staged membership boundary — it would pin a
+            # digest and solicit votes under the OLD epoch's quorum. The
+            # primary retransmits after activation; votes for such slots
+            # merely buffer and are refiltered at the epoch switch.
+            self.metrics["preprepare_beyond_boundary"] += 1
+            return
+        inst = self._instance(msg.view, msg.seq)
+        if isinstance(msg, PrePrepare):
+            # structural block admission runs even with signatures off
+            reqs = self._validate_block(msg.block, msg.digest)
+            if reqs is None:
+                self.metrics["bad_block"] += 1
+                return
+            actions = inst.on_pre_prepare(msg)
+            if inst.pre_prepare is not None and inst.t_started == 0.0:
+                inst.t_started = clock.now()  # commit-latency clock
+                # An admitted proposal IS pending client work (the paper
+                # arms backup view timers exactly here): without this, a
+                # backup that never saw the request itself has no armed
+                # failover timer AND no probe chain — so a lost vote for
+                # this slot goes unrepaired until a client retry happens
+                # to arrive and arm it (measured: vote-loss recovery
+                # latency equaled client patience, not probe cadence)
+                self.vc.arm()
+            if inst.pre_prepare is msg:
+                # admitted (digest verified by the instance): remember the
+                # block so digest-only certificates can be refilled later,
+                # and its decode so execution skips the third validation
+                self.store_block(msg.seq, msg.digest, msg.block)
+                self._remember_block(msg.digest, reqs)
+                if self.tracer is not None:
+                    # bind sampled requests to (view, seq, digest) and
+                    # stamp their pre_prepare phase
+                    self.tracer.note_block(msg.view, msg.seq, msg.digest, reqs)
+        elif isinstance(msg, Prepare):
+            actions = inst.on_prepare(msg)
+        else:
+            actions = inst.on_commit(msg)
+        if frozen:
+            # frozen catch-up: execution only, never new votes/preparedness
+            actions = [a for a in actions if isinstance(a, ExecuteBlock)]
+        for act in actions:
+            await self._perform(act)
+        if (
+            self.cfg.qc_mode
+            and self.is_primary
+            and isinstance(msg, (Prepare, Commit))
+        ):
+            await self._try_aggregate(
+                inst, "prepare" if isinstance(msg, Prepare) else "commit"
+            )
+
+    # ------------------------------------------------------------------
+    # QC mode: primary-side aggregation + certificate handling
+    # ------------------------------------------------------------------
+
+    async def _aggregate_verified(
+        self, phase: str, view: int, seq: int, digest: str, shares: Dict[str, str]
+    ) -> Tuple[Optional[QuorumCert], set]:
+        """Shared aggregate pipeline: build, pairing self-check off-loop,
+        bisect out Byzantine shares on failure, rebuild, re-verify.
+        Returns (verified cert or None, senders whose shares were bad)."""
+        cert = qc_mod.build_qc(phase, view, seq, digest, shares, self.cfg.quorum)
+        if cert is None:
+            return None, set()
+        try:
+            if await qc_mod.verify_qc_async(self.cfg, cert):
+                return cert, set()
+        except qc_mod.QcLaneOverloaded:
+            # lane at cap: don't blame shares — aggregation retries on
+            # the next share arrival once the pile drains
+            self.metrics["qc_shed_overload"] += 1
+            return None, set()
+        self.metrics["qc_aggregate_failed"] += 1
+        good = await clock.off_thread(
+            qc_mod.bisect_bad_shares, self.cfg, phase, view, seq, digest, shares
+        )
+        bad = set(shares) - set(good)
+        self.metrics["qc_bad_shares"] += len(bad)
+        if len(good) < self.cfg.quorum:
+            return None, bad
+        cert = qc_mod.build_qc(phase, view, seq, digest, good, self.cfg.quorum)
+        try:
+            if cert is None or not await qc_mod.verify_qc_async(self.cfg, cert):
+                return None, bad
+        except qc_mod.QcLaneOverloaded:
+            self.metrics["qc_shed_overload"] += 1
+            return None, bad
+        return cert, bad
+
+    async def _try_aggregate(self, inst: Instance, phase: str) -> None:
+        """Primary only: once 2f+1 matching shares are logged for a phase,
+        aggregate them into a QuorumCert, self-check its pairing (one
+        Byzantine share corrupts the aggregate — bisect and exclude on
+        failure), then broadcast. Pairings run off-loop."""
+        key = (inst.view, inst.seq, phase)
+        if key in self._qc_sent or inst.digest is None:
+            return
+        log_map = inst.prepares if phase == "prepare" else inst.commits
+        shares = {
+            sender: v.bls_share
+            for sender, v in log_map.items()
+            if v.digest == inst.digest
+            and v.bls_share
+            and qc_mod.share_valid_shape(v.bls_share)
+        }
+        if len(shares) < self.cfg.quorum:
+            return
+        cert, bad = await self._aggregate_verified(
+            phase, inst.view, inst.seq, inst.digest, shares
+        )
+        for sender in bad:
+            log_map.pop(sender, None)
+        if cert is None:
+            return
+        self._qc_sent.add(key)
+        self.signer.sign_msg(cert)
+        self.metrics["qcs_formed"] += 1
+        cert_wire = trace.stamp(
+            cert.to_wire(),
+            trace.QC_PREPARE if phase == "prepare" else trace.QC_COMMIT,
+            inst.view,
+            inst.seq,
+            self.id,
+        )
+        await self.transport.broadcast(cert_wire, self.cfg.replica_ids)
+        await self._on_qc(cert)  # act on our own certificate
+
+    async def _on_qc(self, msg: QuorumCert) -> None:
+        """A quorum certificate arrives (from the primary, or relayed —
+        it is self-certifying). One pairing check (memoized) then drive
+        the instance's QC transitions."""
+        if not self.cfg.qc_mode:
+            self.metrics["unroutable"] += 1
+            return
+        if msg.phase not in qc_mod.VOTE_PHASES:
+            # checkpoint aggregates only travel inside view-change
+            # certificates; a standalone one routed here would otherwise
+            # be treated as a vote QC over a STATE digest
+            self.metrics["unroutable"] += 1
+            return
+        if self.vc.in_view_change and msg.phase != "commit":
+            # prepare-phase participation stays frozen during a view
+            # change (our VIEW-CHANGE certificate fixed the prepared set),
+            # but a COMMIT QC is committee-level proof of commitment:
+            # executing it is safe in any view, emits no votes (see
+            # _send_vote), and un-wedges a replica whose outstanding work
+            # the rest of the committee already finished
+            self.metrics["dropped_in_viewchange"] += 1
+            return
+        if msg.view != self.view:
+            if msg.view > self.view:
+                self.vc.note_higher_view(msg.view)
+            self.metrics["wrong_view"] += 1
+            return
+        if not self._in_window(msg.seq):
+            self.metrics["out_of_window"] += 1
+            return
+        # rate-bound the expensive pairing per sender: a faulty replica
+        # streaming distinct bogus aggregates (each a fresh pairing,
+        # uncacheable by construction) must not monopolize the QC lane.
+        # Honest senders never accumulate failures.
+        bad_key = (msg.sender, msg.view)
+        if self._qc_bad_by_sender.get(bad_key, 0) >= 8:
+            self.metrics["qc_sender_muted"] += 1
+            return
+        try:
+            # off-loop batched check (qc.QcVerifyLane): every replica's
+            # pending certs coalesce into one RLC multi-pairing, and a
+            # 60 ms pairing never rides the Ed25519 executor threads
+            ok = await qc_mod.verify_qc_async(self.cfg, msg)
+        except qc_mod.QcLaneOverloaded:
+            # lane at cap: shed this certificate, not the sender's
+            # reputation — QCs are self-certifying and re-arrive via
+            # rebroadcast or the slot-probe chain once the pile drains
+            self.metrics["qc_shed_overload"] += 1
+            return
+        if not ok:
+            self.metrics["bad_qc"] += 1
+            self._qc_bad_by_sender[bad_key] = (
+                self._qc_bad_by_sender.get(bad_key, 0) + 1
+            )
+            return
+        if self.auditor is not None:
+            # pairing-verified: safe to audit (conflicting aggregates at
+            # one (view, seq, phase) convict their overlapping signers)
+            self.auditor.observe_qc(msg)
+        inst = self._instance(msg.view, msg.seq)
+        actions = (
+            inst.on_prepare_qc(msg)
+            if msg.phase == "prepare"
+            else inst.on_commit_qc(msg)
+        )
+        for act in actions:
+            await self._perform(act)
+
+    async def _perform(self, act) -> None:
+        if isinstance(act, SendPrepare):
+            await self._send_vote(Prepare, "prepare", act)
+        elif isinstance(act, SendCommit):
+            if self.tracer is not None:
+                # a SendCommit action means the slot just PREPARED here
+                self.tracer.slot_event("prepare", act.view, act.seq)
+            inst = self.instances.get((act.view, act.seq))
+            if inst is not None and inst.t_started and not inst.t_prepared:
+                # phase span 1/3: pre-prepare admission -> prepared
+                inst.t_prepared = clock.now()
+                spans.record(
+                    spans.PHASE_PREPARE,
+                    inst.t_prepared - inst.t_started,
+                    node=self.id, view=act.view, seq=act.seq,
+                )
+            # the prepare certificate just formed here: freeze its quorum
+            # time so the arrival-order margin can finalize (QC-mode
+            # backups reach this via the cert, with no local vote log —
+            # QuorumStats counts those as partial, not a margin sample)
+            self.qstats.note_quorum(
+                "prepare", act.view, act.seq,
+                self.cfg.quorum, len(self.cfg.replica_ids),
+            )
+            await self._send_vote(Commit, "commit", act)
+            if self.spec is not None and inst is not None:
+                # the slot just PREPARED here: execute it speculatively
+                # and answer the clients two message delays early
+                # (consensus/speculation.py; rollback covers the loss)
+                await self._send_spec_replies(self.spec.on_prepared(inst))
+        elif isinstance(act, ExecuteBlock):
+            if act.seq <= self.executed_seq:
+                # a re-issued pre-prepare for an already-executed seq
+                # (possible after view install when executed_seq > stable
+                # at the cert's h) must not park a stale entry in `ready`
+                self.metrics["stale_execute_dropped"] += 1
+                return
+            if self.tracer is not None:
+                # an ExecuteBlock action means a commit certificate formed
+                self.tracer.slot_event("commit", act.view, act.seq)
+            inst = self.instances.get((act.view, act.seq))
+            if inst is not None and not inst.t_committed:
+                # phase span 2/3: prepared -> commit certificate. Slots
+                # that skipped local preparation (QC catch-up, adopted
+                # blocks) anchor on t_started; slots with neither clock
+                # (pure hole repair) have no attributable wait to record.
+                inst.t_committed = clock.now()
+                base = inst.t_prepared or inst.t_started
+                if base:
+                    spans.record(
+                        spans.PHASE_COMMIT,
+                        inst.t_committed - base,
+                        node=self.id, view=act.view, seq=act.seq,
+                    )
+            self.qstats.note_quorum(
+                "commit", act.view, act.seq,
+                self.cfg.quorum, len(self.cfg.replica_ids),
+            )
+            self.ready[act.seq] = act
+            # committee-liveness signal (failover deferral): an
+            # ExecuteBlock action means a commit certificate formed for
+            # this seq, whether or not our ordered execution can reach it
+            if act.seq > self.max_committed_seen:
+                self.max_committed_seen = act.seq
+            await self._execute_ready()
+            if self.ready:
+                # parked behind an execution hole: make sure the repair
+                # probe chain is running (independent of failover arming)
+                self.vc.ensure_probe()
+
+    async def _send_vote(self, cls, phase: str, act) -> None:
+        """Emit one phase vote. Normal mode: ed25519-signed broadcast to
+        every replica (O(n^2) votes committee-wide). QC mode: attach a BLS
+        share and send to the view's primary ONLY (O(n)); the primary
+        aggregates 2f+1 shares into a QuorumCert."""
+        if self.vc.in_view_change:
+            # frozen: no votes leave this replica between VIEW-CHANGE and
+            # NEW-VIEW (QC-mode commit execution may still reach here)
+            self.metrics["vote_suppressed_in_vc"] += 1
+            return
+        if self.retired:
+            # removed by a committed reconfiguration: an honest retiree
+            # goes silent on the consensus plane (peers would role-gate
+            # the votes out anyway — see faults.StaleEpochVoter for the
+            # byzantine replica that refuses to)
+            self.metrics["vote_suppressed_retired"] += 1
+            return
+        vote = cls(view=act.view, seq=act.seq, digest=act.digest)
+        # our own vote is self-delivered (_on_phase below) and never
+        # transits the transport recv seam, so its arrival is logged here
+        self.qstats.note_vote(phase, act.view, act.seq, self.id)
+        if self.cfg.qc_mode:
+            vote.bls_share = qc_mod.sign_share(
+                self.bls_sk, phase, act.view, act.seq, act.digest
+            )
+            self.signer.sign_msg(vote)
+            primary = self.cfg.primary(act.view)
+            if primary == self.id:
+                await self._on_phase(vote)  # our own share, directly
+            else:
+                wire = trace.stamp(
+                    vote.to_wire(), phase, act.view, act.seq, self.id
+                )
+                await self.transport.send(primary, wire)
+            return
+        self.signer.sign_msg(vote)
+        wire = trace.stamp(vote.to_wire(), phase, act.view, act.seq, self.id)
+        await self.transport.broadcast(wire, self.cfg.replica_ids)
+        await self._on_phase(vote)  # count own vote
+
+    # ------------------------------------------------------------------
+    # ordered execution
+    # ------------------------------------------------------------------
+
+    async def _execute_ready(self) -> None:
+        while (self.executed_seq + 1) in self.ready:
+            act = self.ready.pop(self.executed_seq + 1)
+            self.executed_seq += 1
+            self.last_commit_mono = clock.now()
+            self.committed_log[act.seq] = act.digest
+            self.metrics["committed_blocks"] += 1
+            if self.auditor is not None:
+                # commit-uniqueness check + the per-seq digest line the
+                # cross-node agreement matrix joins (audit I3)
+                self.auditor.observe_commit(act.view, act.seq, act.digest)
+            src = self.instances.get((act.view, act.seq))
+            now_pc = clock.now()
+            if src is not None and src.t_started:
+                self.stats.commit_ms.record((now_pc - src.t_started) * 1e3)
+            if src is not None and src.t_committed:
+                # phase span 3/3: commit certificate -> applied in order
+                # (execution-hole wait). The three phase.* spans tile
+                # t_started -> here, so their per-slot sum reconciles
+                # with the commit_ms sample recorded above.
+                spans.record(
+                    spans.PHASE_EXECUTE,
+                    now_pc - src.t_committed,
+                    node=self.id, view=act.view, seq=act.seq,
+                )
+            if src is not None and src.t_started:
+                # execute.final: admission -> applied in order — the
+                # full commit latency the speculative reply undercuts
+                # (percentile-comparable against execute.spec)
+                spans.record(
+                    spans.EXECUTE_FINAL,
+                    now_pc - src.t_started,
+                    node=self.id, view=act.view, seq=act.seq,
+                )
+            reqs = self._validate_block(act.block, act.digest)
+            if reqs is None:  # unreachable: admission validated on entry
+                self.metrics["exec_bad_block"] += 1
+                continue
+            if self.spec is not None:
+                # divergence gate BEFORE the block applies: a speculated
+                # digest losing to the committed one voids the fork
+                self.spec.before_finalize(act)
+            final_results: Dict[Tuple[str, int], str] = {}
+            for req in reqs:
+                self.relay_buffer.pop((req.client_id, req.timestamp), None)
+                if req.ack > self.client_ack.get(req.client_id, 0):
+                    self.client_ack[req.client_id] = req.ack
+                recent = self.recent_replies.get(req.client_id, {})
+                if req.timestamp in recent:
+                    # EXACT-ts replay that slipped into a block: no-op.
+                    # (A max-ts watermark here would skip lower timestamps
+                    # of a pipelined client whose requests committed out
+                    # of order after a failover — deadlocking the client.)
+                    self.metrics["exec_replay_skipped"] += 1
+                    continue
+                if req.timestamp <= self.client_watermark.get(req.client_id, 0):
+                    # At/below the folded watermark with no cached reply:
+                    # either a replay whose reply the checkpoint fold
+                    # already discarded, or a pipelined client's lower
+                    # timestamp that stayed in flight across a whole
+                    # checkpoint interval while a higher sibling executed.
+                    # Post-fold the two are indistinguishable, so never
+                    # re-apply (at-most-once execution) — but DO answer.
+                    # Watermark and reply cache are checkpoint state,
+                    # identical on every honest replica, so the client
+                    # gets f+1 matching SUPERSEDED replies (an explicit
+                    # "resubmit with a fresh timestamp") instead of
+                    # hanging forever on a silently dropped request.
+                    self.metrics["exec_replay_skipped"] += 1
+                    await self._send_superseded(act.view, act.seq, req)
+                    continue
+                if req.operation.startswith(RECONFIG_PREFIX):
+                    # committed membership change: stage it; activation
+                    # waits for the next checkpoint boundary so every
+                    # honest replica switches epochs at the same edge
+                    result = self._execute_reconfig(act.seq, req)
+                else:
+                    result = self.app.apply(req.operation)
+                final_results[(req.client_id, req.timestamp)] = result
+                self.metrics["committed_requests"] += 1
+                # one hash decides sampling for BOTH execute and reply
+                trace_rid = (
+                    self.tracer.rid_if_sampled(req.client_id, req.timestamp)
+                    if self.tracer is not None
+                    else None
+                )
+                if trace_rid:
+                    self.tracer.emit(
+                        "execute", trace_rid, view=act.view, seq=act.seq
+                    )
+                reply = Reply(
+                    view=act.view,
+                    seq=act.seq,
+                    client_id=req.client_id,
+                    timestamp=req.timestamp,
+                    result=result,
+                    # deterministic (epoch activation is a function of
+                    # executed history): a stale client sees a higher
+                    # epoch in any reply and re-resolves the committee
+                    epoch=self.cfg.epoch,
+                )
+                self.recent_replies.setdefault(req.client_id, {})[
+                    req.timestamp
+                ] = reply
+                # Designated repliers: cfg.repliers replicas (f+1 plus a
+                # few loss-tolerance spares, rotating by seq) sign and
+                # transmit — f+1 matching is all the client can use, so
+                # the remaining signatures and sends were pure waste (at
+                # n=100: ~58 signs + client-side decodes per request).
+                # Everyone still CACHES the reply: if the designated set
+                # is unlucky (drops, faults), the client's retransmission
+                # hits the _on_request duplicate branch, where every
+                # replica signs-on-demand and resends the cached reply
+                # (the liveness fallback).
+                if (
+                    not self.retired
+                    and (self._index - act.seq) % self.cfg.n
+                    < self.cfg.repliers
+                ):
+                    self._auth_reply(reply)
+                    self.metrics["replies_sent"] += 1
+                    await self.transport.send(req.client_id, reply.to_wire())
+                    if trace_rid:
+                        self.tracer.emit(
+                            "reply", trace_rid, view=act.view, seq=act.seq
+                        )
+            if self.spec is not None:
+                # confirm (or roll back) the slot's speculation, and
+                # keep the fork in lockstep across unspeculated slots
+                self.spec.after_finalize(act, final_results)
+            if self.tracer is not None:
+                # executed: the slot's trace binding is complete
+                self.tracer.release_slot(act.view, act.seq)
+            if self.executed_seq % self.cfg.checkpoint_interval == 0:
+                if (
+                    self.pending_reconfig is not None
+                    and self.executed_seq >= self.pending_reconfig[0]
+                ):
+                    # the staged membership change activates AT the
+                    # boundary, BEFORE the checkpoint is cut, so the new
+                    # epoch's config rides this checkpoint's snapshot
+                    # and joiners state-transfer straight into it
+                    self._activate_epoch(self.pending_reconfig[1])
+                    self.pending_reconfig = None
+                await self._emit_checkpoint(self.executed_seq)
+            self.vc.reset()  # commits are progress: the primary is alive
+        if self.spec is not None and self.spec.needs_respec:
+            # a rollback during this drain discarded speculation for
+            # slots that are still PREPARED: re-execute the certified
+            # prefix in order and re-answer the clients
+            await self._send_spec_replies(self.spec.re_speculate())
+
+    async def _send_superseded(self, view: int, seq: int, req) -> None:
+        """Answer with Reply.superseded=1 (see messages.Reply): the
+        client library surfaces f+1 of these as SupersededError —
+        resubmitting is the APPLICATION's call (the op may have executed
+        before the fold, so a blind auto-retry could double-apply).
+
+        Transient split: while a checkpoint fold propagates, replicas
+        that folded answer superseded=1 here while slower ones still
+        re-send the cached real reply, so neither (result, superseded)
+        pair may reach the client's f+1 until stabilization (which needs
+        2f+1, so it always completes). "Identical on every honest
+        replica" holds for the snapshot state at quiescence, not during
+        the fold window — the client treats a mixed split as a cue to
+        rebroadcast early (client._on_reply) rather than a timeout."""
+        reply = Reply(
+            view=view,
+            seq=seq,
+            client_id=req.client_id,
+            timestamp=req.timestamp,
+            superseded=1,
+            epoch=self.cfg.epoch,
+        )
+        self._auth_reply(reply)
+        await self.transport.send(req.client_id, reply.to_wire())
+
+    async def _send_spec_replies(self, replies) -> None:
+        """Authenticate and transmit speculative replies (Reply.spec=1)
+        the speculation engine produced. NEVER cached in recent_replies:
+        the reply cache is checkpoint state, and speculative results
+        must not leak into a checkpoint digest — retries are answered
+        from the final reply once it lands."""
+        if not replies:
+            return
+        for reply in replies:
+            self._auth_reply(reply)
+            self.metrics["spec_replies_sent"] += 1
+            await self.transport.send(reply.client_id, reply.to_wire())
+
+    # ------------------------------------------------------------------
+    # live membership reconfiguration
+    # ------------------------------------------------------------------
+
+    def _execute_reconfig(self, seq: int, req: Request) -> str:
+        """Execute a committed ``__reconfig__ {json}`` operation. Strictly
+        deterministic: every input is either committed block content or
+        checkpoint state, so every honest replica stages the identical
+        config with the identical activation seq (or returns the
+        identical denial string). Authorization is the request's own
+        client signature checked against cfg.admin_ids — already
+        batch-verified on admission like any client request."""
+        import json
+
+        if req.client_id not in self.cfg.admin_ids:
+            self.metrics["reconfig_denied"] += 1
+            return "reconfig-denied:not-admin"
+        if self.pending_reconfig is not None:
+            # one staged change at a time: a second change before the
+            # boundary would make the activation config ambiguous
+            self.metrics["reconfig_denied"] += 1
+            return "reconfig-denied:change-pending"
+        try:
+            spec = json.loads(req.operation[len(RECONFIG_PREFIX):])
+            add = {
+                str(k): {
+                    "pub": str(v["pub"]),
+                    "bls": str(v.get("bls", "")),
+                    "kx": str(v.get("kx", "")),
+                    "addr": str(v.get("addr", "")),
+                }
+                for k, v in dict(spec.get("add", {})).items()
+            }
+            remove = [str(x) for x in list(spec.get("remove", []))]
+            new_cfg = apply_reconfig(self.cfg, add, remove)
+        except (ValueError, TypeError, KeyError) as e:
+            self.metrics["reconfig_denied"] += 1
+            return f"reconfig-denied:{e}"
+        interval = self.cfg.checkpoint_interval
+        activate_at = (seq // interval + 1) * interval
+        self.pending_reconfig = (activate_at, new_cfg)
+        self.metrics["reconfig_staged"] += 1
+        return (
+            f"reconfig-staged:epoch={new_cfg.epoch}"
+            f":activate_at={activate_at}"
+        )
+
+    def _activate_epoch(self, new_cfg: CommitteeConfig) -> None:
+        """Switch committee epochs (at a checkpoint boundary, or inside a
+        snapshot install whose certified state already carries the new
+        config). Every honest replica switches at the same executed_seq,
+        so quorum math, primary rotation, and the consensus role-gate
+        change in lockstep. Seq-scoped consensus state (instances,
+        watermarks, stores) carries over untouched — sequence numbers
+        are epoch-global."""
+        from ..crypto import mac as mac_mod
+
+        old = self.cfg
+        self.cfg = new_cfg
+        self._replica_set = frozenset(new_cfg.replica_ids)
+        self.metrics["epoch"] = new_cfg.epoch
+        self.metrics["epochs_activated"] += 1
+        if self.id in new_cfg.replica_ids:
+            self._index = new_cfg.replica_ids.index(self.id)
+            self.retired = False
+        else:
+            # removed by the committee: go silent on the consensus plane
+            # but keep serving chunks/config (docs/SCENARIOS.md) — unless
+            # a byzantine injector made this replica refuse retirement,
+            # in which case it keeps voting and the peers' role gate is
+            # the defense under test
+            self.retired = not self.refuse_retirement
+        # the kx table changed membership: rebuild the per-client MAC bank
+        self._mac = mac_mod.MacBank(self._seed, new_cfg.kx_pubkeys)
+        if new_cfg.addrs:
+            # socket transports route by peer book — without this push a
+            # reconfiguration-added member is named but unreachable
+            from ..transport.base import update_peer_book
+
+            self.metrics["peer_book_updates"] += update_peer_book(
+                self.transport, new_cfg.addrs
+            )
+        # Register any NEW member keys with the verify seam WITHOUT
+        # reopening jit shapes: the device key bank is sized with
+        # headroom (initial_keys = population + 32, node.make_verifier),
+        # so a lookup fills a reserved row and the jit signature —
+        # (mode, window, batch, table cap) — is unchanged; buckets=[]
+        # compiles nothing. The warm_for_population contract, asserted
+        # as zero post_warm_compiles across the epoch boundary in tests.
+        new_keys = [
+            pk for rid, pk in new_cfg.pubkeys.items()
+            if old.pubkeys.get(rid) != pk
+        ]
+        warm = getattr(self.verifier, "warm", None)
+        if new_keys and callable(warm):
+            try:
+                warm(pubkeys=new_keys, buckets=[])
+            except Exception:
+                log.exception("%s: epoch key registration failed", self.id)
+        if self.auditor is not None:
+            # the audit plane must hold I1-I4 across the boundary: give
+            # it the new membership and an epoch marker in the ledger
+            self.auditor.on_epoch(new_cfg)
+        self._reconcile_boundary_instances(new_cfg)
+        if self.spec is not None:
+            # slots above the boundary were refiltered to the new
+            # epoch's quorum and may no longer be prepared: their
+            # speculation is unjustified until they re-prepare
+            self.spec.on_epoch(self.executed_seq)
+        log.info(
+            "%s: epoch %d -> %d (n=%d%s)",
+            self.id, old.epoch, new_cfg.epoch, new_cfg.n,
+            ", retired" if self.retired else "",
+        )
+
+    def _reconcile_boundary_instances(self, new_cfg: CommitteeConfig) -> None:
+        """Refit in-flight slots ABOVE the activation boundary to the new
+        epoch. The stop-sequence gates (_propose_if_ready /
+        _on_phase) keep such slots from forming while a change is
+        staged, but a replica learns of the staging only when it
+        EXECUTES the reconfig op — proposals pipelined ahead of its
+        execution frontier slip through with the OLD committee's quorum
+        threshold baked into their Instance. Left alone, a grown
+        committee (quorum 3 -> 5) would let f_new byzantine members plus
+        a stale threshold commit a new-epoch slot no honest new-epoch
+        quorum prepared. Execution order makes the repair airtight:
+        nothing above the boundary can have APPLIED before the boundary
+        itself, and activating runs before the boundary's checkpoint is
+        cut — so every straddler is still pending here and can be
+        refiltered (votes from non-members dropped, threshold rebased,
+        stale certificates discarded, unjustified stages walked back).
+        A walked-back slot re-forms under the new epoch via the
+        primary's retransmission or the next view change; its pinned
+        digest is kept, so the replica never votes two ways."""
+        boundary = self.executed_seq
+        members = self._replica_set
+        for (view, seq), inst in self.instances.items():
+            if seq <= boundary:
+                continue
+            inst.quorum = new_cfg.quorum
+            if inst.pre_prepare is None:
+                # no proposal pinned: repoint the slot at the new
+                # epoch's rotation so the right primary can fill it
+                inst.primary = new_cfg.primary(view)
+            for store in (inst.prepares, inst.commits):
+                for sender in [s for s in store if s not in members]:
+                    del store[sender]
+            if inst.digest is not None:
+                inst._recount_matching()
+            else:
+                inst._prep_matching = inst._com_matching = 0
+            if inst.qc_mode:
+                # certificates aggregated under the old epoch's signer
+                # set cannot decide a new-epoch slot
+                inst.prepare_qc = None
+                inst.commit_qc = None
+                still_prepared = still_committed = False
+            else:
+                still_prepared = inst.prepared()
+                still_committed = inst.committed()
+            if inst.stage == Stage.COMMITTED and not still_committed:
+                self.ready.pop(seq, None)  # queued but NOT applied (see
+                # the execution-order argument above)
+                inst.executed = False
+                inst.stage = (
+                    Stage.PREPARED if still_prepared else
+                    Stage.PRE_PREPARED if inst.pre_prepare is not None
+                    else Stage.IDLE
+                )
+                self.metrics["epoch_slots_downgraded"] += 1
+            elif inst.stage == Stage.PREPARED and not still_prepared:
+                inst.stage = (
+                    Stage.PRE_PREPARED if inst.pre_prepare is not None
+                    else Stage.IDLE
+                )
+                self.metrics["epoch_slots_downgraded"] += 1
+
+    async def _on_config_fetch(self, msg: ConfigFetch) -> None:
+        """Serve the committee configuration (a stale client's address-
+        book refresh after a reconfiguration). Cooldown-bounded per
+        sender; the reply is signed, and a client adopts only on f+1
+        matching copies from replicas it already knows — one lying
+        replica cannot steer a client into a fake committee."""
+        now = clock.now()
+        key = f"cfg:{msg.sender}"
+        if now - self._slot_fetch_served.get(key, 0.0) < self.SLOT_FETCH_COOLDOWN:
+            self.metrics["slot_fetch_throttled"] += 1
+            return
+        self._slot_fetch_served[key] = now
+        reply = ConfigReply(
+            epoch=self.cfg.epoch,
+            config=canonical_json(config_doc(self.cfg)).decode(),
+        )
+        self.signer.sign_msg(reply)
+        self.metrics["config_fetches_served"] += 1
+        await self.transport.send(msg.sender, reply.to_wire())
+
+    # ------------------------------------------------------------------
+    # checkpoints / watermarks
+    # ------------------------------------------------------------------
+
+    def _checkpoint_snapshot(self) -> str:
+        """Replica-level snapshot: application state PLUS the reply cache
+        and per-client watermarks (classical PBFT: the reply/dedup cache is
+        replicated state — without it a state-transferred replica would
+        re-execute replays)."""
+        import json
+
+        return json.dumps(
+            {
+                # the COMMITTED application state only — the speculation
+                # engine's checkpoint surface is fork-blind by
+                # construction (consensus/speculation.py holds the
+                # invariant and the spec_leak planted defect that
+                # violates it for the sim oracle's benefit)
+                "app": (
+                    self.spec.checkpoint_app_snapshot()
+                    if self.spec is not None
+                    else self.app.snapshot()
+                ),
+                # the MEMBERSHIP is replicated state too: a
+                # state-transferred joiner must restore the exact epoch
+                # its peers run, and a staged-but-unactivated reconfig
+                # must survive the transfer or the joiner's next
+                # checkpoint boundary diverges from the committee's
+                "config": config_doc(self.cfg),
+                "pending_reconfig": (
+                    {
+                        "activate_at": self.pending_reconfig[0],
+                        "config": config_doc(self.pending_reconfig[1]),
+                    }
+                    if self.pending_reconfig is not None
+                    else None
+                ),
+                "watermark": self.client_watermark,
+                # declared completion floors gate the fold, so a
+                # state-transferred replica must restore them or its
+                # future folds (hence checkpoint digests) would diverge
+                "ack": self.client_ack,
+                # replies canonicalized: sender/sig blanked (each replica
+                # re-signs on resend) AND view blanked — replicas execute
+                # the same request in DIFFERENT views around a failover,
+                # and a view-bearing digest would keep 2f+1 checkpoint
+                # digests from ever matching during view-change storms
+                # (found by the fault-injection soak: identical app state,
+                # diverged checkpoint digests, stalled stabilization)
+                "replies": {
+                    c: {
+                        str(ts): {
+                            **r.to_dict(),
+                            "sender": "", "sig": "", "mac": "", "view": 0,
+                        }
+                        for ts, r in sorted(recent.items())
+                    }
+                    for c, recent in sorted(self.recent_replies.items())
+                    if recent
+                },
+            },
+            sort_keys=True,
+            separators=(",", ":"),
+        )
+
+    async def _emit_checkpoint(self, seq: int) -> None:
+        from ..app import snapshot_digest
+
+        # Fold the per-client replay state forward — but only entries
+        # executed at least one FULL checkpoint interval ago (reply.seq
+        # records the executing seq, so the fold is a deterministic
+        # function of executed history and every replica folds
+        # identically) AND at/below the client's signed completion floor
+        # (Request.ack, also taken from executed blocks only). The seq
+        # horizon alone is NOT a time guarantee: at high block rates one
+        # interval passes in milliseconds, so a pipelined client's
+        # dropped-then-retried lower timestamp could fall under the fold
+        # mid-flight and bounce as SUPERSEDED (found by the fading-load
+        # drain-tail test). The floor closes that: a client's in-flight
+        # timestamps are by definition above its declared floor. Clients
+        # that never declare (ack=0) keep today's horizon-only fold once
+        # their cache is oversized — the memory bound must not depend on
+        # client cooperation. The latest folded reply stays cached for
+        # replay answers.
+        horizon = seq - self.cfg.checkpoint_interval
+        for c, recent in self.recent_replies.items():
+            floor = self.client_ack.get(c, 0)
+            # the cap counts only ABOVE-floor entries: below-floor ones
+            # fold within one interval by the horizon rule regardless, so
+            # they can't accumulate — and counting them would trip the
+            # fallback for a perfectly-declaring high-throughput client
+            # (whose last-interval executions alone can exceed the cap),
+            # reintroducing the exact fold race the floor exists to stop
+            if sum(1 for ts in recent if ts > floor) > RECENT_REPLIES_CAP:
+                folded = [ts for ts, r in recent.items() if r.seq <= horizon]
+            else:
+                # Above-floor entries fold only when the client's ENTIRE
+                # window is stale — the departed-client signature (its
+                # last in-flight batch has no later request to raise the
+                # floor, and must not ride every future snapshot
+                # forever). Any fresh execution keeps the whole window
+                # alive, so an ACTIVE pipelined client's siblings are
+                # never aged out under third-party load. Residual,
+                # documented trade: a client whose ONLY outstanding
+                # request stays unexecuted for STALE_FOLD_INTERVALS
+                # intervals (indistinguishable from departed) gets an
+                # explicit SUPERSEDED when it finally lands.
+                stale = seq - STALE_FOLD_INTERVALS * self.cfg.checkpoint_interval
+                all_stale = all(r.seq <= stale for r in recent.values())
+                folded = [
+                    ts for ts, r in recent.items()
+                    if r.seq <= horizon and (ts <= floor or all_stale)
+                ]
+            if not folded:
+                continue
+            top = max(folded)
+            self.client_watermark[c] = max(
+                self.client_watermark.get(c, 0), top
+            )
+            for ts in folded:
+                if ts != top:
+                    del recent[ts]
+        # A floor at/below the watermark gates nothing (the fold's floor
+        # rule only spares entries ABOVE it): drop such entries so a
+        # departed client leaves only its watermark behind — a returning
+        # client re-declares with its first executed request. Without
+        # this, client_ack would be a second forever-growing per-client
+        # map riding every snapshot.
+        for cid in [
+            c for c, a in self.client_ack.items()
+            if a <= self.client_watermark.get(c, 0)
+        ]:
+            del self.client_ack[cid]
+        snap = self._checkpoint_snapshot()
+        digest = snapshot_digest(snap)
+        self.checkpoint_digests[seq] = digest
+        self.snapshots[seq] = snap
+        cp = Checkpoint(seq=seq, state_digest=digest)
+        if self.cfg.qc_mode and self.bls_sk is not None:
+            # share for the aggregate checkpoint certificate (view pinned
+            # to 0: checkpoints are view-independent)
+            cp.bls_share = qc_mod.sign_share(
+                self.bls_sk, "checkpoint", 0, seq, digest
+            )
+        self.signer.sign_msg(cp)
+        if self.auditor is not None:
+            # own checkpoint: the ledger line cross-node state-digest
+            # agreement is computed from, and the local reference peers'
+            # checkpoints are compared against (audit I2)
+            self.auditor.observe_message(cp)
+        await self._on_checkpoint(cp)  # count our own
+        if not self.retired:
+            # an honest retiree keeps folding locally but stops feeding
+            # the consensus plane (peers would role-gate the frame out)
+            await self.transport.broadcast(cp.to_wire(), self.cfg.replica_ids)
+
+    async def ensure_checkpoint_qc(self) -> None:
+        """QC mode: aggregate the stored 2f+1 checkpoint shares at the
+        stable watermark into ONE CheckpointQC for view-change proofs.
+        Lazy — runs when a failover actually needs it, not per
+        stabilization — and self-checks the aggregate (bisecting out
+        Byzantine shares) exactly like the vote path."""
+        if not self.cfg.qc_mode or self.stable_seq == 0:
+            return
+        seq = self.stable_seq
+        if seq in self.checkpoint_qcs:
+            return
+        votes = self.checkpoints.get(seq, {})
+        digest = self.checkpoint_digests.get(seq)
+        if digest is None:
+            return
+        shares = {
+            sender: cp.bls_share
+            for sender, cp in votes.items()
+            if cp.state_digest == digest
+            and cp.bls_share
+            and qc_mod.share_valid_shape(cp.bls_share)
+        }
+        if len(shares) < self.cfg.quorum:
+            return
+        cert, bad = await self._aggregate_verified(
+            "checkpoint", 0, seq, digest, shares
+        )
+        for sender in bad:
+            # drop Byzantine shares so the (un-memoized) bisection does
+            # not repeat on every subsequent view-change attempt
+            self.checkpoints.get(seq, {}).pop(sender, None)
+        if cert is None:
+            return
+        # the awaited pairings yield the event loop: the watermark may
+        # have advanced meanwhile, making this aggregate dead on arrival
+        # (and already outside _advance_stable's GC)
+        if seq < self.stable_seq:
+            return
+        self.signer.sign_msg(cert)
+        self.checkpoint_qcs[seq] = cert
+
+    async def _on_checkpoint(self, msg: Checkpoint) -> None:
+        if msg.seq <= self.stable_seq:
+            return
+        self.checkpoints[msg.seq][msg.sender] = msg
+        votes = self.checkpoints[msg.seq]
+        # stable when 2f+1 replicas certify the same digest at seq
+        counts: Dict[str, int] = defaultdict(int)
+        for cp in votes.values():
+            counts[cp.state_digest] += 1
+        digest, best = max(counts.items(), key=lambda kv: kv[1])
+        if best >= self.cfg.quorum:
+            await self._stabilize(msg.seq, digest)
+
+    async def on_checkpoint_msg(self, msg: Checkpoint) -> None:
+        """Public entry for signature-verified checkpoints arriving inside
+        view-change certificates (state catch-up across views)."""
+        await self._on_checkpoint(msg)
+
+    async def _stabilize(
+        self, seq: int, digest: str, certifiers: Optional[List[str]] = None
+    ) -> None:
+        """A checkpoint certificate formed at ``seq``. If we have executed
+        that far ourselves, just advance the watermark; otherwise we are
+        lagging (missed commits the rest of the committee GC'd) and must
+        state-transfer before adopting it. ``certifiers`` names replicas
+        known to hold the state (a CheckpointQC's signer set — the local
+        vote map is EMPTY when stabilization came from an aggregate)."""
+        if seq <= self.stable_seq:
+            return
+        if seq > self.executed_seq:
+            # watermark gap: a checkpoint certificate exists beyond our
+            # execution frontier — the committee GC'd what we'd need to
+            # replay. Chunked, resumable, digest-verified transfer from
+            # the certifiers (consensus/statesync.py); the legacy
+            # single-frame StateRequest stays served for old peers but
+            # is no longer sent.
+            if self.pending_sync is None or self.pending_sync[0] < seq:
+                self.pending_sync = (seq, digest)
+                self.metrics["state_sync_requests"] += 1
+                if certifiers is None:
+                    certifiers = [
+                        r
+                        for r, cp in self.checkpoints[seq].items()
+                        if cp.state_digest == digest
+                    ]
+                await self.statesync.begin(seq, digest, certifiers)
+            return
+        self._advance_stable(seq)
+        await self._replay_vc_buffer()
+
+    # ------------------------------------------------------------------
+    # block store + fetch (digest-only certificates refill here)
+    # ------------------------------------------------------------------
+
+    MAX_PENDING_BLOCKS = 1024  # detached re-issues awaiting fetch
+
+    def store_block(self, seq: int, digest: str, block) -> None:
+        """Remember an admitted block by digest (highest seq binding wins
+        — GC prunes by the stable watermark)."""
+        cur = self.block_store.get(digest)
+        if cur is None or seq > cur[0]:
+            self.block_store[digest] = (seq, block)
+
+    def resolve_block(self, pp: PrePrepare) -> Optional[PrePrepare]:
+        """Fill a detached pre-prepare's block from the store. Returns the
+        filled message (signature stays valid — it covers the digest, not
+        the block) or None if the block must be fetched."""
+        if pp.block or pp.digest == EMPTY_BLOCK_DIGEST:
+            return pp  # already carries its block, or the no-op block
+        ent = self.block_store.get(pp.digest)
+        if ent is None:
+            return None
+        return PrePrepare(
+            sender=pp.sender, sig=pp.sig, view=pp.view, seq=pp.seq,
+            digest=pp.digest, block=ent[1],
+        )
+
+    MAX_WAITERS_PER_DIGEST = 32  # Byzantine same-digest-many-seqs bound
+
+    def buffer_for_block(self, pp: PrePrepare) -> None:
+        waiters = self.block_pending.get(pp.digest)
+        if waiters is None:
+            if len(self.block_pending) >= self.MAX_PENDING_BLOCKS:
+                self.metrics["block_pending_overflow"] += 1
+                return
+            waiters = self.block_pending[pp.digest] = {}
+        key = (pp.view, pp.seq)
+        if key not in waiters and len(waiters) >= self.MAX_WAITERS_PER_DIGEST:
+            self.metrics["block_pending_overflow"] += 1
+            return
+        waiters[key] = pp
+
+    def prune_stale_block_pending(self, new_view: int) -> None:
+        """Entries buffered under earlier views are dead: the new install
+        re-buffers (and re-requests) whatever its own O-set still needs,
+        and a stale entry would otherwise hold has_outstanding_work()
+        true forever, firing the failover timer on an idle committee."""
+        self.block_pending = {
+            dg: kept
+            for dg, waiters in self.block_pending.items()
+            if (kept := {
+                k: pp for k, pp in waiters.items() if pp.view >= new_view
+            })
+        }
+
+    async def request_blocks(self, digests: List[str]) -> None:
+        """Ask f+1 peers for blocks behind re-issued digests, rotating
+        the target window each call: a FIXED first-f+1 pick can be f
+        honest-but-lagging non-signers plus one silent Byzantine signer,
+        in which case no target ever answers and recovery would stall
+        until state transfer. Rotation reaches every peer within a few
+        timer re-fires. A broadcast would n-fold the multi-MB replies
+        during failover congestion. Liveness fallback: if no targeted
+        peer answers, the view-change timer fires again."""
+        peers = [r for r in self.cfg.replica_ids if r != self.id]
+        k = min(self.cfg.weak_quorum, len(peers))
+        start = self._fetch_rotation % max(1, len(peers))
+        self._fetch_rotation += k
+        targets = (peers + peers)[start : start + k]
+        want = sorted(set(digests))
+        for off in range(0, len(want), 256):  # chunk, don't truncate
+            fetch = BlockFetch(digests=want[off : off + 256])
+            self.signer.sign_msg(fetch)
+            self.metrics["block_fetches_sent"] += 1
+            wire = fetch.to_wire()
+            for peer in targets:
+                await self.transport.send(peer, wire)
+
+    # soft byte budget per BlockReply: stay far under the wire cap and
+    # chunk large responses instead of building one undeliverable frame
+    BLOCK_REPLY_SOFT_BYTES = 4 * 1024 * 1024
+
+    async def _on_block_fetch(self, msg: BlockFetch) -> None:
+        if not isinstance(msg.digests, list):
+            return
+        found = []
+        approx = 0
+        for dg in msg.digests[:256]:
+            ent = self.block_store.get(dg) if isinstance(dg, str) else None
+            if ent is None:
+                continue
+            found.append({"digest": dg, "block": ent[1]})
+            approx += sum(len(str(rd)) for rd in ent[1]) + 128
+            if approx >= self.BLOCK_REPLY_SOFT_BYTES:
+                await self._send_block_reply(msg.sender, found)
+                found, approx = [], 0
+        if found:
+            await self._send_block_reply(msg.sender, found)
+
+    async def _send_block_reply(self, dest: str, entries) -> None:
+        reply = BlockReply(blocks=entries)
+        self.signer.sign_msg(reply)
+        await self.transport.send(dest, reply.to_wire())
+
+    async def _on_block_reply(self, msg: BlockReply) -> None:
+        """Self-authenticating: recompute each block's digest; mismatches
+        are dropped (the responder need not be trusted). Matching blocks
+        release any buffered detached pre-prepares — but only for the
+        CURRENT view: a late reply for a superseded view's digest must
+        not clobber the current view's replay slot."""
+        qc_stalled = None  # digest -> commit-QC-stalled instances (lazy)
+        for ent in msg.blocks[:256]:
+            dg = ent.get("digest")
+            block = ent.get("block")
+            if not isinstance(dg, str) or not isinstance(block, list):
+                continue
+            if PrePrepare.block_digest(block) != dg:
+                self.metrics["bad_block_reply"] += 1
+                continue
+            # hole repair: a slot whose digest a verified commit QC fixed
+            # but whose pre-prepare (and so block) never arrived adopts
+            # the digest-matching block directly and executes — votes are
+            # never emitted by adoption, so this is safe frozen or not.
+            # (stalled-slot index built once per reply, not per entry)
+            if qc_stalled is None:
+                qc_stalled = defaultdict(list)
+                for inst in self.instances.values():
+                    if (
+                        inst.commit_qc is not None
+                        and inst.block is None
+                        and inst.digest is not None
+                        and not inst.executed
+                    ):
+                        qc_stalled[inst.digest].append(inst)
+            stalled = qc_stalled.get(dg, ())
+            if stalled:
+                # one decode for all stalled instances sharing the digest,
+                # remembered (dg was verified against the block above) so
+                # the execution path's validation hits the cache too
+                reqs = self._validate_block(block, dg)
+                if reqs is None:
+                    self.metrics["bad_block_reply"] += 1
+                else:
+                    self._remember_block(dg, reqs)
+                    for inst in stalled:
+                        self.metrics["holes_repaired"] += 1
+                        if self.tracer is not None:
+                            # bind the repaired slot so the commit/execute
+                            # trace events that follow adoption carry the
+                            # request ids — hole repair happens exactly in
+                            # the degraded windows traces must explain
+                            self.tracer.note_block(
+                                inst.view, inst.seq, dg, reqs
+                            )
+                        for act in inst.adopt_block(block):
+                            if isinstance(act, ExecuteBlock):
+                                await self._perform(act)
+            waiters = self.block_pending.pop(dg, None)
+            if not waiters:
+                continue
+            # replay EVERY waiting slot (a digest can be pending at
+            # several (view, seq) keys), in deterministic order
+            for _, pp in sorted(waiters.items()):
+                self.store_block(pp.seq, dg, block)
+                if pp.view != self.view:
+                    self.metrics["stale_block_reply"] += 1
+                    continue
+                filled = PrePrepare(
+                    sender=pp.sender, sig=pp.sig, view=pp.view, seq=pp.seq,
+                    digest=dg, block=block,
+                )
+                self.metrics["blocks_fetched"] += 1
+                if filled.seq > self.stable_seq + self.cfg.watermark_window:
+                    self.vc_replay[filled.seq] = filled
+                else:
+                    await self._on_phase(filled)
+
+    # ------------------------------------------------------------------
+    # steady-state hole filling (messages.SlotFetch)
+    # ------------------------------------------------------------------
+
+    MAX_SLOT_FETCH = 64  # slots served per request
+    SLOT_FETCH_COOLDOWN = 1.0  # per-sender seconds (DoS bound)
+
+    def missing_slots(self) -> List[int]:
+        """Unexecuted seqs a peer could unstick: everything from the
+        execution frontier up to the highest slot we know is in flight
+        (bounded). The FIRST entry is the hole that blocks execution."""
+        horizon = self.executed_seq
+        for (v, s) in self.instances:
+            if v == self.view and s > horizon:
+                horizon = max(horizon, s)
+        if self.ready:
+            # an executed-but-parked block beyond the hole proves the
+            # committee committed everything up to it
+            horizon = max(horizon, max(self.ready))
+        horizon = min(horizon, self.executed_seq + self.MAX_SLOT_FETCH)
+        return [
+            s
+            for s in range(self.executed_seq + 1, horizon + 1)
+            if s not in self.ready
+        ]
+
+    async def resend_frontier_votes(self, window: int = 4) -> None:
+        """Targeted VOTE retransmission for the stalled frontier.
+
+        Votes (QC mode: BLS shares) are emitted exactly once, on a phase
+        transition; a dropped vote frame is otherwise gone forever.
+        Slot probes cannot repair that — they fetch artifacts that
+        EXIST, and a commit QC missing five shares does not exist; the
+        missing senders must re-send. Measured failure (qc-n64, 2%
+        drop, seed 99): a unanimous, live committee with the frontier
+        slot PREPARED and its commit shares stuck at 38/43 for minutes —
+        progress only via the full view-change backoff ladder, which
+        outlasts client patience.
+
+        Fired from the probe chain while stalled. Idempotent: receivers
+        duplicate-drop by sender, and _send_vote's frozen gate keeps
+        resends silent during a view change. The primary leg re-attempts
+        aggregation for slots whose quorum-crossing share arrived before
+        this replica installed the view (the arrival-edge trigger is
+        gated on is_primary at arrival time, so such slots hold 2f+1
+        shares and no QC until someone re-asks)."""
+        v = self.view
+        base = self.executed_seq
+        now = clock.now()
+        # Small age floor only — the STALL decision lives at the caller
+        # (ViewChanger._probe fires this solely when execution made no
+        # progress between probe ticks). A hard 3 s per-instance age gate
+        # was tried instead and re-starved the chaos tail (repairs came
+        # too late); resending mid-flight slots on every tick was also
+        # tried and taxed CLEAN qc-n64 throughput ~12%. Progress-gating
+        # gets both: zero traffic while healthy, fast repair when stuck.
+        stall_age = 1.0
+        for seq in range(base + 1, base + 1 + window):
+            inst = self.instances.get((v, seq))
+            if (
+                inst is None
+                or inst.digest is None
+                or inst.pre_prepare is None
+                or inst.stage == Stage.COMMITTED
+                or inst.commit_qc is not None
+                or now - inst.t_started < stall_age
+            ):
+                continue
+            self.metrics["frontier_votes_resent"] += 1
+            await self._send_vote(
+                Prepare, "prepare", SendPrepare(v, seq, inst.digest)
+            )
+            if inst.stage == Stage.PREPARED or inst.prepare_qc is not None:
+                await self._send_vote(
+                    Commit, "commit", SendCommit(v, seq, inst.digest)
+                )
+        if self.is_primary:
+            for seq in range(base + 1, base + 1 + window):
+                inst = self.instances.get((v, seq))
+                if (
+                    inst is None
+                    or inst.digest is None
+                    or now - inst.t_started < stall_age
+                ):
+                    continue
+                if (
+                    inst.stage == Stage.PRE_PREPARED
+                    and inst.prepare_qc is None
+                    and inst.pre_prepare is not None
+                    and len(inst.prepares) <= 1
+                ):
+                    # prepare phase visibly dead: the original broadcast
+                    # raced the backups' view install (frozen replicas
+                    # drop in-flight phase traffic) or was lost — and a
+                    # pre-prepare is otherwise sent exactly once.
+                    # Backups cannot probe for a slot they never heard
+                    # of; only this re-broadcast teaches them it exists.
+                    self.metrics["preprepares_rebroadcast"] += 1
+                    await self.transport.broadcast(
+                        inst.pre_prepare.to_wire(), self.cfg.replica_ids
+                    )
+                if not self.cfg.qc_mode:
+                    continue
+                if inst.prepare_qc is None:
+                    await self._try_aggregate(inst, "prepare")
+                if inst.commit_qc is None and (
+                    inst.prepare_qc is not None
+                    or inst.stage == Stage.PREPARED
+                ):
+                    await self._try_aggregate(inst, "commit")
+
+    async def send_slot_probe(self) -> None:
+        """Ask peers to re-send stalled slots' artifacts. Fired by the
+        failover machinery at a fraction of the view timeout — and KEPT
+        firing while frozen in a view change (a locally-stalled replica's
+        failover is never joined by a healthy committee; catch-up in the
+        current view is its only way back). A dropped QC/pre-prepare then
+        heals with one round trip instead of a view change. Targets
+        rotate beyond the primary: any executed replica can serve blocks
+        and self-certifying QCs, and under loss (or with a stalled
+        primary) the primary alone is a single point of repair failure."""
+        seqs = self.missing_slots()
+        view_hint = self.vc.pending_view_hint()
+        if not seqs and not view_hint:
+            return
+        peers = [r for r in self.cfg.replica_ids if r != self.id]
+        rotating = peers[self._probe_rr % len(peers)] if peers else None
+        self._probe_rr += 1
+        if seqs:
+            fetch = SlotFetch(view=self.view, seqs=seqs)
+            self.signer.sign_msg(fetch)
+            self.metrics["slot_probes_sent"] += 1
+            targets = dict.fromkeys([self.cfg.primary(self.view), rotating])
+            for t in targets:
+                if t is not None and t != self.id:
+                    await self.transport.send(t, fetch.to_wire())
+        if view_hint:
+            # verified traffic from a higher view: fetch the NEW-VIEW we
+            # lost (its primary surely has it; the rotating peer covers a
+            # crashed primary)
+            nvf = NewViewFetch(view=view_hint)
+            self.signer.sign_msg(nvf)
+            self.metrics["newview_fetches_sent"] += 1
+            self.vc.count_hint_fetch()
+            targets = dict.fromkeys([self.cfg.primary(view_hint), rotating])
+            for t in targets:
+                if t is not None and t != self.id:
+                    await self.transport.send(t, nvf.to_wire())
+
+    async def _on_slot_fetch(self, msg: SlotFetch) -> None:
+        if not isinstance(msg.seqs, list):
+            return
+        # no view gate: instance-artifact lookups key on the REQUESTER's
+        # view (a mismatch just misses), and executed blocks are
+        # view-independent and self-authenticating either way
+        now = clock.now()
+        last = self._slot_fetch_served.get(msg.sender, 0.0)
+        if now - last < self.SLOT_FETCH_COOLDOWN:
+            self.metrics["slot_fetch_throttled"] += 1
+            return
+        self._slot_fetch_served[msg.sender] = now
+        served = 0
+        blocks: List[Dict[str, Any]] = []
+        approx = 0
+        for seq in msg.seqs[: self.MAX_SLOT_FETCH]:
+            if not isinstance(seq, int):
+                break  # malformed entry: still flush what we gathered
+            inst = self.instances.get((msg.view, seq))
+            if inst is not None:
+                if inst.pre_prepare is not None and inst.pre_prepare.block:
+                    await self.transport.send(
+                        msg.sender, inst.pre_prepare.to_wire()
+                    )
+                    served += 1
+                # QC mode: the aggregates are the quorum; re-send our
+                # stored copies (self-certifying — any replica may relay)
+                for qc in (inst.prepare_qc, inst.commit_qc):
+                    if qc is not None:
+                        await self.transport.send(msg.sender, qc.to_wire())
+                        served += 1
+            if inst is None or inst.pre_prepare is None:
+                # block refill regardless of the instance's view: a hole
+                # whose digest a commit QC fixed only needs the BLOCK to
+                # execute, and a BlockReply entry authenticates itself by
+                # digest (see _on_block_reply's adopt_block path)
+                dg = self.committed_log.get(seq)
+                ent = self.block_store.get(dg) if dg is not None else None
+                if ent is not None:
+                    blocks.append({"digest": dg, "block": ent[1]})
+                    approx += sum(len(str(rd)) for rd in ent[1]) + 128
+                    served += 1
+                    if approx >= self.BLOCK_REPLY_SOFT_BYTES:
+                        await self._send_block_reply(msg.sender, blocks)
+                        blocks, approx = [], 0
+        if blocks:
+            await self._send_block_reply(msg.sender, blocks)
+        if served:
+            self.metrics["slot_fetches_served"] += 1
+
+    async def _on_new_view_fetch(self, msg: NewViewFetch) -> None:
+        """Re-send the retained NEW-VIEW certificate (original primary
+        signature and embedded proofs intact — the requester validates it
+        exactly like the broadcast). Cooldown-bounded per sender: the
+        certificate can be large."""
+        nv = self.last_new_view
+        if nv is None or msg.view <= 0 or nv.new_view < msg.view:
+            return
+        now = clock.now()
+        key = f"nv:{msg.sender}"
+        if now - self._slot_fetch_served.get(key, 0.0) < self.SLOT_FETCH_COOLDOWN:
+            self.metrics["slot_fetch_throttled"] += 1
+            return
+        self._slot_fetch_served[key] = now
+        self.metrics["newview_fetches_served"] += 1
+        await self.transport.send(msg.sender, nv.to_wire())
+
+    async def _on_state_request(self, msg: StateRequest) -> None:
+        snap = self.snapshots.get(msg.seq)
+        if snap is None:
+            return
+        resp = StateResponse(seq=msg.seq, snapshot=snap)
+        self.signer.sign_msg(resp)
+        await self.transport.send(msg.sender, resp.to_wire())
+
+    async def _on_state_response(self, msg: StateResponse) -> None:
+        """Legacy single-frame transfer answer (peers still serve the
+        protocol; we no longer request it — consensus/statesync.py owns
+        the requester side). Digest-verified against the certified
+        checkpoint, then installed through the shared path."""
+        if self.pending_sync is None:
+            return
+        seq, digest = self.pending_sync
+        if msg.seq != seq:
+            return
+        if seq <= self.executed_seq:
+            # obsolete BEFORE hashing: the snapshot is attacker-sized and
+            # SHA-256 of a multi-MB frame on the event loop is the cost
+            # the old ordering existed to avoid (install_snapshot keeps
+            # the same guard for the chunked path)
+            self.pending_sync = None
+            self.metrics["state_sync_obsolete"] += 1
+            return
+        from ..app import snapshot_digest
+
+        if snapshot_digest(msg.snapshot) != digest:
+            self.metrics["bad_snapshot"] += 1
+            return  # responder lied; certificate digest is the authority
+        if await self.install_snapshot(seq, digest, msg.snapshot):
+            self.statesync.cancel()  # a whole-frame answer beat the chunks
+
+    async def install_snapshot(
+        self, seq: int, digest: str, snapshot: str
+    ) -> bool:
+        """Install a DIGEST-VERIFIED checkpoint snapshot (both transfer
+        paths land here: the chunked statesync assembly and the legacy
+        StateResponse). Returns True when installed.
+
+        Obsolescence guard: if we outran the sync while the transfer was
+        in flight (hole repair raced state transfer), applying it now
+        would REGRESS executed_seq below blocks already popped from
+        `ready` — leaving execution wedged at the checkpoint forever
+        (and double-applying the app state). Measured under 2% chaos at
+        n=64: replicas frozen at exec == checkpoint seq with later
+        instances marked executed but never applied."""
+        if seq <= self.executed_seq:
+            self.pending_sync = None
+            self.metrics["state_sync_obsolete"] += 1
+            return False
+        try:
+            import json
+
+            # parse EVERYTHING into temporaries first: a half-applied
+            # snapshot (app restored, reply map rejected) would leave the
+            # replica permanently diverged from the certified digest
+            payload = json.loads(snapshot)
+            wm = payload["watermark"]
+            acks = payload.get("ack", {})
+            replies = payload["replies"]
+            app_snap = payload["app"]
+            if (
+                not isinstance(wm, dict)
+                or not isinstance(replies, dict)
+                or not isinstance(acks, dict)
+            ):
+                raise ValueError("bad snapshot envelope")
+            new_wm = {str(c): int(t) for c, t in wm.items()}
+            new_ack = {str(c): int(t) for c, t in acks.items()}
+            restored: Dict[str, Dict[int, Reply]] = {}
+            for c, per_ts in replies.items():
+                if not isinstance(per_ts, dict):
+                    raise ValueError("bad reply map in snapshot")
+                inner: Dict[int, Reply] = {}
+                for ts, r in per_ts.items():
+                    rep = Message.from_dict(r)
+                    if not isinstance(rep, Reply):
+                        raise ValueError("bad reply in snapshot")
+                    self.signer.sign_msg(rep)  # we vouch for the result
+                    inner[int(ts)] = rep
+                restored[str(c)] = inner
+            # membership state: snapshots cut since the
+            # reconfig plane landed carry the committee config and any
+            # staged-but-unactivated change; older/foreign snapshots
+            # (no "config" key) keep the boot config
+            new_cfg = None
+            cfg_doc = payload.get("config")
+            if cfg_doc is not None:
+                new_cfg = config_from_doc(self.cfg, cfg_doc)
+            new_pending = None
+            pend = payload.get("pending_reconfig")
+            if pend:
+                new_pending = (
+                    int(pend["activate_at"]),
+                    config_from_doc(self.cfg, pend["config"]),
+                )
+            # last: commit point. Restore THROUGH the speculation
+            # engine's ForkableApp when speculation is on: the wrapper
+            # drops the speculative fork atomically with the committed
+            # anchor move (on_state_transfer below then reconciles the
+            # slot bookkeeping)
+            (self.spec.app if self.spec is not None else self.app).restore(
+                app_snap
+            )
+            self.client_watermark = new_wm
+            self.client_ack = new_ack
+            self.recent_replies = restored
+        except (ValueError, TypeError, KeyError):
+            self.metrics["bad_snapshot"] += 1
+            return False
+        if new_cfg is not None and new_cfg.epoch > self.cfg.epoch:
+            # the certified state already lives in a later epoch: adopt
+            # it now — quorum math below (certifier widening, probes)
+            # must use the membership the committee actually runs
+            self._activate_epoch(new_cfg)
+        if new_cfg is not None:
+            self.pending_reconfig = new_pending
+        self.pending_sync = None
+        self.executed_seq = seq
+        self.snapshots[seq] = snapshot
+        self.checkpoint_digests[seq] = digest
+        self.ready = {s: a for s, a in self.ready.items() if s > seq}
+        self.metrics["state_syncs"] += 1
+        if self.spec is not None:
+            # the committed anchor jumped under every open speculation
+            self.spec.on_state_transfer(seq)
+        self._advance_stable(seq)
+        await self._execute_ready()  # buffered blocks beyond the snapshot
+        await self._replay_vc_buffer()
+        return True
+
+    def _advance_stable(self, seq: int) -> None:
+        if seq <= self.stable_seq:
+            return
+        self.stable_seq = seq
+        self.metrics["stable_checkpoint"] = seq
+        if self.auditor is not None:
+            # audit stores fold with the same watermark as everything else
+            self.auditor.gc(seq)
+        # finalize trace-plane quorum stats for GC'd slots: a straggler
+        # vote that never arrives must not hold a cert record open forever
+        self.qstats.flush_upto(seq)
+        # GC below the watermark: instances, checkpoint votes, committed
+        # log, snapshots, and per-request dedup state. This is the log GC
+        # the reference never had (CommittedMsgs grows forever, node.go:246).
+        self.instances = {
+            k: v for k, v in self.instances.items() if k[1] > seq
+        }
+        # keep s == seq: the certificate AT the stable checkpoint is the
+        # checkpoint_proof every future VIEW-CHANGE must carry
+        self.checkpoints = defaultdict(
+            dict, {s: v for s, v in self.checkpoints.items() if s >= seq}
+        )
+        self.checkpoint_digests = {
+            s: d for s, d in self.checkpoint_digests.items() if s >= seq
+        }
+        self.snapshots = {
+            s: d for s, d in self.snapshots.items() if s >= seq
+        }
+        self.committed_log = {
+            s: d for s, d in self.committed_log.items() if s > seq
+        }
+        self.ready = {s: a for s, a in self.ready.items() if s > seq}
+        self.vc_replay = {
+            s: pp for s, pp in self.vc_replay.items() if s > seq
+        }
+        self.block_store = {
+            dg: (s, b) for dg, (s, b) in self.block_store.items() if s > seq
+        }
+        self.block_pending = {
+            dg: kept
+            for dg, waiters in self.block_pending.items()
+            if (kept := {
+                k: pp for k, pp in waiters.items() if pp.seq > seq
+            })
+        }
+        # keep the aggregate AT the new watermark (the next VIEW-CHANGE
+        # proves exactly this h); older ones are dead
+        self.checkpoint_qcs = {
+            s: c for s, c in self.checkpoint_qcs.items() if s >= seq
+        }
+        self._qc_sent = {k for k in self._qc_sent if k[1] > seq}
+        self.seen_requests = {
+            (c, ts): assigned
+            for (c, ts), assigned in self.seen_requests.items()
+            if ts > self.client_watermark.get(c, 0)
+        }
+        # relay_buffer must fold with the watermark too: a stale
+        # below-floor entry on a backup would (a) shadow the SUPERSEDED
+        # retry answer forever (the dup branch sees it "in flight") and
+        # (b) hold has_outstanding_work() true, arming spurious failovers
+        self.relay_buffer = {
+            (c, ts): r
+            for (c, ts), r in self.relay_buffer.items()
+            if ts > self.client_watermark.get(c, 0)
+        }
+
+    async def _replay_vc_buffer(self) -> None:
+        """Feed buffered NEW-VIEW pre-prepares (seqs that were beyond our
+        lagging window at install time) now that the window has advanced."""
+        for s in sorted(self.vc_replay):
+            pp = self.vc_replay[s]
+            if pp.view != self.view:
+                del self.vc_replay[s]  # superseded by a later view change
+                continue
+            if self._in_window(s):
+                del self.vc_replay[s]
+                await self._on_phase(pp)
+
+    # ------------------------------------------------------------------
+    # view change (protocol in consensus/viewchange.py)
+    # ------------------------------------------------------------------
+
+    async def _on_view_message(self, msg) -> None:
+        self.metrics["view_msgs"] += 1
+        if isinstance(msg, ViewChange):
+            await self.vc.on_view_change(msg)
+        else:
+            await self.vc.on_new_view(msg)
+
+    async def on_phase_msg(self, msg) -> None:
+        """Public entry for the view-change installer's re-issued
+        pre-prepares."""
+        await self._on_phase(msg)
+
+    async def propose_if_ready(self) -> None:
+        await self._propose_if_ready()

@@ -1,0 +1,712 @@
+"""Process-wide coalescing verify service: many replicas, one device pass.
+
+Measurement falsified the naive architecture: with every replica's
+drain sweep making its own blocking device call under the process-wide
+device lock, an n-replica committee pays n device round trips per round
+of votes, and committed far less with the device in the loop than with
+the CPU verifier. The device batch is shape-padded anyway, so one pass over EVERYONE's
+pending items costs the same wall clock as one replica's.
+
+This service is the fix (VERDICT r4 next #1). Replicas submit their
+sweeps' signature batches and get a `concurrent.futures.Future`; a
+single dispatcher thread coalesces everything pending into one batch
+and routes it:
+
+- small piles take the CPU path (native batched Ed25519) — idle traffic
+  never pays a device round trip; the cutoff adapts to the measured
+  device latency and CPU rate;
+- big piles are host-prepped and dispatched to the device WITHOUT
+  blocking (GpuVerifier.dispatch_batch): while batch k executes on the
+  chip, the dispatcher preps and dispatches batch k+1 (bounded depth),
+  and a completion thread resolves futures in dispatch order.
+
+The event loop never blocks and never burns an executor thread waiting:
+Replica._start_sweep awaits `asyncio.wrap_future(service.submit(...))`.
+
+The reference's quorum predicates — where these verifies would sit had
+it had signatures — are pbft/consensus/pbft_impl.go:207-232; its pools
+drain at pbft/network/node.go:393-420. One shared device standing in
+for every replica's crypto is exactly the TPU-first reading of that
+design: the chip is a committee-wide resource, like the network.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from typing import List, Optional, Sequence
+
+from .. import devledger, sanitize, spans
+from .verifier import BatchItem, Verifier, best_cpu_verifier
+
+
+class Overloaded(RuntimeError):
+    """Admission-rejected submit: the service's pending pile is at cap.
+
+    Raised (as the future's exception) instead of queueing when accepting
+    the batch would grow the pending pile past ``max_pending``. Unbounded
+    admission under sustained submit-rate > drain-rate grows the RTT
+    without bound and a run stops committing. Rejecting loudly lets the submitter shed the
+    sweep (peers/clients retransmit) while the pile stays bounded."""
+
+
+class VerifyService:
+    """Coalescing front for a device verifier + CPU small-batch path.
+
+    Thread-safe; `submit` may be called from any thread (including the
+    event loop — it never blocks). `verify_batch` is the synchronous
+    Verifier-protocol view (submit + wait), so the service drops into
+    any seam a plain verifier fits.
+    """
+
+    name = "tpu-coalesced"
+
+    # dispatch policy knobs (see _dispatch_loop): a second in-flight
+    # device call is only worth its dispatch overhead when the pending
+    # pile is already substantial; below that, waiting for the in-flight
+    # call to land coalesces harder for free.
+    MIN_SECOND_DISPATCH = 256
+    MAX_DEPTH = 2
+
+    def __init__(
+        self,
+        device,
+        cpu: Optional[Verifier] = None,
+        max_batch: int = 8192,
+        cpu_cutoff: Optional[int] = None,
+        max_pending: int = 65536,
+        dispatch_deadline: Optional[float] = None,
+        quarantine_base: float = 1.0,
+        quarantine_cap: float = 60.0,
+    ):
+        # public: callers (benches, deployment tests) reach through to
+        # the device verifier's bank/counters for contract checks
+        self.device = self._device = device
+        # NOTE: the watchdog/quarantine reroutes verify device-destined
+        # piles on this same CPU backend. On hosts where best_cpu_verifier
+        # is NativeEdVerifier that is kernel-equivalent; where it falls
+        # back to OpenSSL, edge-vector verdicts can differ from the
+        # kernel's — the same cross-pile property the size-routed CPU
+        # path already has on such hosts. Deliberate: the failover path
+        # exists to restore liveness, and the strict pure-Python oracle
+        # is ~3 orders of magnitude slower — swapping it in would re-wedge
+        # exactly the runs the watchdog rescues. Pass a strict `cpu` to
+        # get full verdict uniformity at that price.
+        self._cpu = cpu if cpu is not None else best_cpu_verifier()
+        self._max_batch = max_batch
+        # fixed cutoff if given; else adaptive from the measured rates
+        self._fixed_cutoff = cpu_cutoff
+        # bounded admission: pending items beyond this cap are rejected
+        # with Overloaded instead of queued (RTT must stay bounded)
+        self._max_pending = max_pending
+        # device-stall watchdog: a dispatch whose result does not land
+        # within this many seconds is failed over to the CPU verifier
+        # and the device path quarantined (None = watchdog off)
+        self._deadline = dispatch_deadline
+        self._quarantine_base = quarantine_base
+        self._quarantine_cap = quarantine_cap
+        self._quarantined_until = 0.0  # monotonic; 0 = healthy
+        self._quarantine_backoff = quarantine_base
+        self._pending: deque = deque()  # (items, future, t_enqueued)
+        self._pending_items = 0
+        self._cond = threading.Condition(
+            sanitize.wrap_lock(threading.Lock(), "verify_service.cond")
+        )
+        self._inflight = 0
+        self._closed = False
+        self._started = False
+        # completion queue: (finisher, subs, t_dispatch, n_items)
+        self._done_q: deque = deque()
+        self._done_cond = threading.Condition(
+            sanitize.wrap_lock(threading.Lock(), "verify_service.done_cond")
+        )
+        # dispatch t0 of the device pass the completion thread is
+        # currently waiting on (None = idle) — with the _done_q t0s this
+        # gives snapshot() the age of the OLDEST outstanding dispatch,
+        # the number a stall autopsy blames a silent device with
+        self._finishing_t0: Optional[float] = None
+        # adaptive estimates, EMA-smoothed. Seeds are deliberately mid-
+        # range guesses; both converge within a few calls either way.
+        self._rtt_ema = 0.030
+        self._cpu_rate_ema = 25000.0
+        # observability (read by bench_consensus / ReplicaStats dumps)
+        self.device_passes = 0
+        self.device_pass_items = 0
+        self.cpu_passes = 0
+        self.cpu_pass_items = 0
+        self.max_coalesced = 0
+        self.coalesced_submissions = 0
+        self.max_pending_seen = 0
+        self.overload_rejections = 0
+        self.overload_rejected_items = 0
+        self.watchdog_failovers = 0
+        self.quarantine_probes = 0
+        self.cpu_reroute_passes = 0
+        self.cpu_reroute_items = 0
+        self.cpu_reroute_chunks = 0
+        self.late_device_completions = 0
+        # quarantine lifecycle as counters (telemetry plane): an ENTRY is
+        # a healthy->quarantined transition (a watchdog trip while
+        # already benched only extends the bench), a RECOVERY is a device
+        # pass completing within deadline while the quarantine/backoff
+        # ladder was still armed — together with quarantine_probes these
+        # make enter -> probe -> recover observable in snapshots
+        self.quarantine_entries = 0
+        self.quarantine_recoveries = 0
+
+    @property
+    def rtt_ms(self) -> float:
+        """Smoothed dispatch->result latency of a device pass, ms (the
+        public face of the adaptive estimate the cutoff policy uses)."""
+        return self._rtt_ema * 1e3
+
+    @property
+    def quarantined(self) -> bool:
+        """True while the device path is benched after a watchdog trip
+        (all routing goes to the CPU verifier until the re-probe timer
+        expires)."""
+        return time.monotonic() < self._quarantined_until
+
+    @property
+    def degraded(self) -> bool:
+        """Overload-resilience summary flag: the service is currently
+        shedding (quarantined device) or has ever rejected for overload
+        — surfaced in bench/metrics dumps so a degraded run is visible."""
+        return self.quarantined or self.overload_rejections > 0
+
+    # -- Verifier-protocol pass-throughs ---------------------------------
+
+    @property
+    def device_calls(self):
+        return self._device.device_calls
+
+    @device_calls.setter
+    def device_calls(self, v):
+        self._device.device_calls = v
+
+    @property
+    def device_items(self):
+        return self._device.device_items
+
+    @device_items.setter
+    def device_items(self, v):
+        self._device.device_items = v
+
+    @property
+    def device_seconds(self):
+        return self._device.device_seconds
+
+    @device_seconds.setter
+    def device_seconds(self, v):
+        self._device.device_seconds = v
+
+    def warm_for_population(self, pubkeys: Sequence[bytes], max_sweep: int) -> None:
+        # Shape-stable coalescing: this service folds EVERY
+        # submitter's pending sweep into one take, so the bucket set
+        # reachable through it is bounded by its own max_batch, not by
+        # one submitter's sweep bound — warming only `max_sweep` left
+        # the top buckets cold and the first busy moment compiled them
+        # mid-run (the r5 qc256 8127-item pile). Warm exactly the set
+        # a coalesced take can hit.
+        self._device.warm_for_population(
+            pubkeys, max(max_sweep, self._max_batch)
+        )
+
+    def warm(self, **kw) -> None:
+        self._device.warm(**kw)
+
+    # -- submission API ---------------------------------------------------
+
+    def submit(self, items: Sequence[BatchItem]) -> "Future[List[bool]]":
+        """Enqueue a batch; the future resolves to its verdict bitmap.
+        Never blocks. Order within a submission is preserved."""
+        fut: Future = Future()
+        if not items:
+            fut.set_result([])
+            return fut
+        rejected = False
+        with self._cond:
+            closed = self._closed
+            if not closed:
+                # Bounded admission: a pile past max_pending means drain
+                # rate lost to submit rate — queuing more only grows RTT
+                # without bound (the r5 qc256 wedge shape). Reject loudly;
+                # the submitter sheds the sweep and its senders retry.
+                if (
+                    self._pending_items + len(items) > self._max_pending
+                    and self._pending_items > 0
+                ):
+                    rejected = True
+                else:
+                    if not self._started:
+                        self._start_threads()
+                    self._pending.append(
+                        (list(items), fut, time.perf_counter())
+                    )
+                    self._pending_items += len(items)
+                    if self._pending_items > self.max_pending_seen:
+                        self.max_pending_seen = self._pending_items
+                    self._cond.notify_all()
+        if rejected:
+            # outside the lock: counters are plain ints (GIL-atomic) and
+            # the future's waiter may run callbacks inline
+            self.overload_rejections += 1
+            self.overload_rejected_items += len(items)
+            fut.set_exception(
+                Overloaded(
+                    f"verify service overloaded: {self._pending_items} "
+                    f"items pending (cap {self._max_pending})"
+                )
+            )
+            return fut
+        if closed:
+            # teardown race (a replica's last sweep vs the bench closing
+            # the service): answer on the CPU path rather than erroring a
+            # sweep that already entered the pipeline — outside the lock,
+            # so a late submitter never serializes others behind a full
+            # scalar Ed25519 pass
+            fut.set_result(self._cpu.verify_batch(list(items)))
+        return fut
+
+    def verify_batch(self, items: Sequence[BatchItem]) -> List[bool]:
+        return self.submit(items).result()
+
+    def snapshot(self) -> dict:
+        """One-call export of the service's overload/quarantine surface
+        for the telemetry plane (simple_pbft_tpu/telemetry.py): live
+        queue depth, routing counters, watchdog/quarantine lifecycle,
+        and the adaptive estimates. Counters are GIL-atomic ints; only
+        the pending/inflight pair is read under the lock so depth and
+        in-flight passes are a consistent cut."""
+        with self._cond:
+            pending = self._pending_items
+            inflight = self._inflight
+        with self._done_cond:
+            t0s = [e[2] for e in self._done_q if e is not None]
+        cur = self._finishing_t0
+        if cur is not None:
+            t0s.append(cur)
+        oldest_age = (
+            round(time.perf_counter() - min(t0s), 3) if t0s else 0.0
+        )
+        out = {
+            "name": self.name,
+            # age of the oldest dispatched-but-unanswered device pass:
+            # reads ~RTT while healthy, grows without bound while the
+            # device is silently stalled (the r5 qc256 shape) — the
+            # field diagnose_stall() keys its verify.device verdict on
+            "inflight_oldest_age_s": oldest_age,
+            "degraded": self.degraded,
+            "quarantined": self.quarantined,
+            "pending_items": pending,
+            "inflight_passes": inflight,
+            "max_pending": self._max_pending,
+            "max_pending_seen": self.max_pending_seen,
+            "overload_rejections": self.overload_rejections,
+            "overload_rejected_items": self.overload_rejected_items,
+            "watchdog_failovers": self.watchdog_failovers,
+            "quarantine_entries": self.quarantine_entries,
+            "quarantine_probes": self.quarantine_probes,
+            "quarantine_recoveries": self.quarantine_recoveries,
+            "cpu_reroute_passes": self.cpu_reroute_passes,
+            "cpu_reroute_items": self.cpu_reroute_items,
+            "cpu_reroute_chunks": self.cpu_reroute_chunks,
+            "late_device_completions": self.late_device_completions,
+            "device_passes": self.device_passes,
+            "device_pass_items": self.device_pass_items,
+            "cpu_passes": self.cpu_passes,
+            "cpu_pass_items": self.cpu_pass_items,
+            "max_coalesced": self.max_coalesced,
+            "coalesced_submissions": self.coalesced_submissions,
+            "rtt_ms_ema": round(self.rtt_ms, 3),
+            "cpu_rate_ema": round(self._cpu_rate_ema, 1),
+        }
+        # shape-stability surface of the device behind this service
+        # (TpuVerifier.shape_snapshot): after warmup post_warm_compiles
+        # must read 0 — a nonzero value mid-run IS the r5 qc256 suspect
+        shape = getattr(self._device, "shape_snapshot", None)
+        if callable(shape):
+            out["device_shapes"] = shape()
+        # per-dispatch device ledger aggregates: dispatch
+        # rate, occupancy, effective verifies/s, pad waste, coalescing
+        # efficiency — the block telemetry/pbft_top/bench records and
+        # tools/verify_observatory.py consume. Process-wide, like the
+        # service itself.
+        out["device"] = devledger.snapshot()
+        return out
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        with self._done_cond:
+            self._done_cond.notify_all()
+
+    # -- internals ---------------------------------------------------------
+
+    def _start_threads(self) -> None:
+        self._started = True
+        threading.Thread(
+            target=self._dispatch_loop, name="verify-dispatch", daemon=True
+        ).start()
+        threading.Thread(
+            target=self._complete_loop, name="verify-complete", daemon=True
+        ).start()
+
+    def _cutoff(self) -> int:
+        """Largest batch the CPU path should take: the point where CPU
+        time ≈ half a device round trip. Clamped so a glitchy RTT sample
+        can neither starve the device nor flood the core."""
+        if self._fixed_cutoff is not None:
+            return self._fixed_cutoff
+        c = int(self._cpu_rate_ema * self._rtt_ema * 0.5)
+        return max(16, min(c, 2048))
+
+    def _take_locked(self) -> "tuple[list, int, list]":
+        """Pop whole submissions up to max_batch items (caller holds the
+        lock). A single oversized submission is taken alone —
+        dispatch_batch chunks it internally. The third return is each
+        taken submission's (queue_wait_s, n_items) — the admission-queue
+        wait spans, recorded by the caller AFTER the lock drops."""
+        subs = []
+        total = 0
+        now = time.perf_counter()
+        waits = []
+        while self._pending:
+            n = len(self._pending[0][0])
+            if subs and total + n > self._max_batch:
+                break
+            items, fut, t_enq = self._pending.popleft()
+            subs.append((items, fut))
+            waits.append((now - t_enq, n))
+            total += n
+            self._pending_items -= n
+            if total >= self._max_batch:
+                break
+        return subs, total, waits
+
+    def _can_dispatch_locked(self) -> bool:
+        """Something pending can make progress NOW. An older policy
+        held EVERY pile — including a 15-item quorum sweep — behind the
+        in-flight device pass, so each consensus phase gate paid a full
+        device RTT. Small piles must never wait: the CPU path clears
+        them while the device absorbs the bulk."""
+        if not self._pending:
+            return False
+        if self.quarantined:
+            return True  # everything drains on the CPU path right now
+        if self._pending_items <= self._cutoff():
+            return True  # CPU path (or a free device slot) is immediate
+        if self._inflight >= self.MAX_DEPTH:
+            return False  # big pile, depth full: wait for a slot
+        return (
+            self._inflight == 0
+            or self._pending_items >= self.MIN_SECOND_DISPATCH
+        )
+
+    def _dispatch_loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._closed and not self._can_dispatch_locked():
+                    self._cond.wait()
+                if self._closed and not self._pending:
+                    # FIFO shutdown: the sentinel reaches the completion
+                    # thread only after every dispatched finisher, so no
+                    # in-flight future is ever abandoned by close()
+                    with self._done_cond:
+                        self._done_q.append(None)
+                        self._done_cond.notify_all()
+                    return
+                subs, total, waits = self._take_locked()
+                if not subs:
+                    continue
+                # routing is by size ALONE: piles <= cutoff clear on the
+                # CPU in ~total/cpu_rate ms no matter what the device is
+                # doing; piles > cutoff (CPU time would exceed half an
+                # RTT) go to the device. The ADAPTIVE cutoff moves with
+                # the EMAs between the gate check and here, so for it the
+                # depth bound is re-asserted rather than assumed: a pile
+                # the gate admitted as small that now reads big must not
+                # become a depth-exceeding third device pass. A FIXED
+                # cutoff never moves, so that clause must not apply — a
+                # device-only service (cpu_cutoff=0) draining its backlog
+                # at close() keeps its items off the CPU path, briefly
+                # exceeding MAX_DEPTH instead (a dispatch-overlap policy,
+                # not a correctness bound; the verifier serializes device
+                # access itself).
+                # Quarantine overrides size routing: after a watchdog
+                # trip EVERYTHING drains on the CPU until the re-probe
+                # backoff expires; the first post-backoff big pile is the
+                # probe that decides whether the device is back.
+                quarantined = self.quarantined
+                route_cpu = quarantined or total <= self._cutoff() or (
+                    self._fixed_cutoff is None
+                    and self._inflight >= self.MAX_DEPTH
+                )
+                if not route_cpu:
+                    if (
+                        self._deadline is not None
+                        and self._quarantine_backoff > self._quarantine_base
+                    ):
+                        # backoff expired and we are about to touch the
+                        # device again: this dispatch is the re-probe
+                        self.quarantine_probes += 1
+                    self._inflight += 1
+            self.coalesced_submissions += len(subs)
+            self.max_coalesced = max(self.max_coalesced, total)
+            for wait_s, n in waits:
+                # admission-queue wait per submission: how long a sweep's
+                # signatures sat behind earlier piles before the
+                # dispatcher even looked at them — the coalesce-wait leg
+                # of the critical path (spans.py / tools/critical_path)
+                spans.record(spans.VERIFY_QUEUE, wait_s, n=n)
+            # the flattened batch is built only on the paths that consume
+            # it whole — the chunked reroute works from `subs` directly,
+            # so the big-pile case pays no O(total) copy in this loop
+            if route_cpu:
+                if total > self._cutoff():
+                    # big pile forced onto the CPU (quarantine OR the
+                    # adaptive depth-full clause): run it on its own
+                    # thread so the dispatch loop keeps clearing small
+                    # quorum sweeps, and resolve submission-by-submission
+                    # in bounded chunks so early submitters inside the
+                    # take answer before the tail (ADVICE r5 — the
+                    # depth-full reroute used to run the whole pass
+                    # inline in the dispatcher, serializing every later
+                    # 15-item quorum gate behind up to max_batch items)
+                    self.cpu_reroute_passes += 1
+                    self.cpu_reroute_items += total
+                    threading.Thread(
+                        target=self._run_cpu_chunked,
+                        args=(subs,),
+                        name="verify-cpu-reroute",
+                        daemon=True,
+                    ).start()
+                else:
+                    self._run_cpu(
+                        [it for items, _fut in subs for it in items], subs
+                    )
+            else:
+                batch: List[BatchItem] = []
+                for items, _fut in subs:
+                    batch.extend(items)
+                # hand the take's admission-queue wait to the device
+                # ledger: dispatch_batch runs synchronously on THIS
+                # thread, so the thread-local annotation reaches the
+                # per-dispatch event the verifier records
+                if waits and total:
+                    devledger.annotate(
+                        sum(w * n for w, n in waits) / total, len(subs)
+                    )
+                t0 = time.perf_counter()
+                try:
+                    finisher = self._device.dispatch_batch(batch)
+                except BaseException as e:  # noqa: BLE001
+                    # the annotation above was never consumed (the
+                    # dispatch died before recording): clear it, or the
+                    # NEXT take's event inherits this take's queue wait
+                    devledger.take_annotation()
+                    self._fail(subs, e)
+                    with self._cond:
+                        self._inflight -= 1
+                        self._cond.notify_all()
+                    continue
+                with self._done_cond:
+                    self._done_q.append((finisher, subs, t0, total))
+                    self._done_cond.notify_all()
+
+    def _complete_loop(self) -> None:
+        while True:
+            with self._done_cond:
+                while not self._done_q:
+                    self._done_cond.wait()
+                entry = self._done_q.popleft()
+                if entry is None:  # dispatcher's shutdown sentinel
+                    return
+                finisher, subs, t0, total = entry
+            # plain attribute (GIL-atomic): snapshot() reads it to expose
+            # how long the CURRENT device pass has been in flight — the
+            # number that names a silent device in a wedge autopsy
+            self._finishing_t0 = t0
+            try:
+                if self._deadline is not None:
+                    verdicts = self._finish_with_deadline(
+                        finisher, subs, t0, total
+                    )
+                    if verdicts is None:
+                        # watchdog fired: the pile was already failed over
+                        # to the CPU and the device quarantined — only the
+                        # in-flight slot remains to release
+                        self._finishing_t0 = None
+                        with self._cond:
+                            self._inflight -= 1
+                            self._cond.notify_all()
+                        continue
+                else:
+                    verdicts = finisher()
+            except BaseException as e:  # noqa: BLE001
+                self._fail(subs, e)
+            else:
+                rtt = time.perf_counter() - t0
+                self._rtt_ema = 0.8 * self._rtt_ema + 0.2 * rtt
+                self.device_passes += 1
+                self.device_pass_items += total
+                # dispatch -> result RTT of one coalesced device pass
+                spans.record(spans.VERIFY_DEVICE, rtt, n=total)
+                self._resolve(subs, verdicts)
+                # a completed pass within deadline is proof of device
+                # health: end any quarantine and reset the re-probe ladder
+                if (
+                    self._quarantined_until
+                    or self._quarantine_backoff != self._quarantine_base
+                ):
+                    # the ladder was armed (benched now, or a post-expiry
+                    # probe): this pass is the recovery transition
+                    self.quarantine_recoveries += 1
+                self._quarantined_until = 0.0
+                self._quarantine_backoff = self._quarantine_base
+            self._finishing_t0 = None
+            with self._cond:
+                self._inflight -= 1
+                self._cond.notify_all()
+
+    def _finish_with_deadline(self, finisher, subs, t0, total):
+        """Run ``finisher`` on a sidecar thread and wait at most the
+        configured deadline (measured from DISPATCH, so time already
+        spent queued behind an earlier stuck pass counts). On expiry:
+        fail the pile over to the CPU verifier on ITS OWN thread (a big
+        stuck pile must not block later small piles' completions through
+        this loop), quarantine the device path with exponential re-probe
+        backoff, and abandon the stuck finisher (daemon thread). Returns
+        the verdicts, or None when the watchdog fired; device exceptions
+        re-raise exactly like the undeadlined path."""
+        # per-pass sidecar thread: its spawn cost is noise against a
+        # device pass.
+        # A persistent watcher would save it at the price of lifecycle
+        # state shared with the abandon path; not worth it at this RTT.
+        box: dict = {}
+        done = threading.Event()
+
+        def run() -> None:
+            try:
+                box["r"] = finisher()
+            except BaseException as e:  # noqa: BLE001
+                box["e"] = e
+            done.set()
+            if "late" in box and "r" in box:
+                # the stalled call eventually landed AFTER failover: the
+                # verdicts are discarded (the CPU already answered) but a
+                # successful late landing is evidence the device lives —
+                # lift the quarantine early
+                self.late_device_completions += 1
+                self._quarantined_until = 0.0
+
+        t = threading.Thread(target=run, name="verify-finish", daemon=True)
+        t.start()
+        remaining = self._deadline - (time.perf_counter() - t0)
+        if done.wait(max(0.0, remaining)):
+            if "e" in box:
+                raise box["e"]
+            return box["r"]
+        # deadline exceeded: this is the stalled-device shape.
+        # Quarantine first so
+        # the dispatch loop reroutes everything still pending, THEN
+        # rescue this pile on the CPU.
+        box["late"] = True  # benign race with done.set(): see below
+        self.watchdog_failovers += 1
+        now = time.monotonic()
+        was_quarantined = now < self._quarantined_until
+        self._quarantined_until = now + self._quarantine_backoff
+        self._quarantine_backoff = min(
+            self._quarantine_cap, self._quarantine_backoff * 2
+        )
+        with self._cond:
+            self._cond.notify_all()  # wake dispatch: routing just changed
+        if done.is_set():
+            # the finisher landed in the instant between wait() expiry
+            # and the late-marker: its result is still good — use it and
+            # withdraw the quarantine we just armed. Withdraw the backoff
+            # doubling too: counting neither an entry nor (via the
+            # armed-ladder check in _complete_loop) a recovery keeps the
+            # lifecycle counters paired for snapshot consumers.
+            self._quarantined_until = 0.0
+            if not was_quarantined:
+                self._quarantine_backoff = self._quarantine_base
+            if "e" in box:
+                raise box["e"]
+            return box["r"]
+        if not was_quarantined:
+            self.quarantine_entries += 1  # healthy -> quarantined
+        self.cpu_reroute_passes += 1
+        self.cpu_reroute_items += total
+        threading.Thread(
+            target=self._run_cpu_chunked,
+            args=(subs,),
+            name="verify-watchdog-failover",
+            daemon=True,
+        ).start()
+        return None
+
+    # biggest single CPU pass a reroute may make: one submission's worst
+    # case is max_drain (4096) items, so 2048 keeps any one pass under
+    # ~100 ms on the native path while still amortizing per-call overhead
+    REROUTE_CHUNK = 2048
+
+    def _run_cpu_chunked(self, subs) -> None:
+        """Big CPU reroute: verify in bounded chunks at SUBMISSION
+        granularity, resolving each submission's future as soon as its
+        verdicts exist — a 15-item quorum sweep coalesced into the same
+        take as an 8k-item pile answers in milliseconds instead of after
+        the whole pass (ADVICE r5). Runs on a reroute thread; exceptions
+        fail only the chunk that hit them (later chunks still verify)."""
+        chunk: List[BatchItem] = []
+        chunk_subs: list = []
+        for items, fut in subs:
+            chunk.extend(items)
+            chunk_subs.append((items, fut))
+            if len(chunk) >= self.REROUTE_CHUNK:
+                self.cpu_reroute_chunks += 1
+                self._run_cpu(chunk, chunk_subs, stage=spans.VERIFY_REROUTE)
+                chunk, chunk_subs = [], []
+        if chunk_subs:
+            self.cpu_reroute_chunks += 1
+            self._run_cpu(chunk, chunk_subs, stage=spans.VERIFY_REROUTE)
+
+    def _run_cpu(
+        self, batch: List[BatchItem], subs, stage: str = spans.VERIFY_CPU
+    ) -> None:
+        # `stage` attributes the pass in the span layer: a size-routed
+        # small pile is verify.cpu, a quarantine/depth-full reroute
+        # chunk is verify.cpu_reroute — same code, different cause
+        t0 = time.perf_counter()
+        try:
+            verdicts = self._cpu.verify_batch(batch)
+        except BaseException as e:  # noqa: BLE001
+            self._fail(subs, e)
+            return
+        dt = time.perf_counter() - t0
+        if dt > 1e-6:
+            self._cpu_rate_ema = (
+                0.8 * self._cpu_rate_ema + 0.2 * (len(batch) / dt)
+            )
+        self.cpu_passes += 1
+        self.cpu_pass_items += len(batch)
+        spans.record(stage, dt, n=len(batch))
+        self._resolve(subs, verdicts)
+
+    @staticmethod
+    def _resolve(subs, verdicts: List[bool]) -> None:
+        off = 0
+        for items, fut in subs:
+            n = len(items)
+            if not fut.cancelled():
+                fut.set_result(verdicts[off : off + n])
+            off += n
+
+    @staticmethod
+    def _fail(subs, exc: BaseException) -> None:
+        for _items, fut in subs:
+            if not fut.cancelled():
+                fut.set_exception(exc)

@@ -1,0 +1,1565 @@
+// BLS12-381 pairing verification — native sibling of crypto/bls.py.
+//
+// Same construction as the Python module (which remains the differential
+// oracle and fallback): Fp -> Fp2 -> Fp6 -> Fp12 tower (u^2 = -1,
+// v^3 = 1+u, w^2 = v), M-twist G2, textbook optimal-ate Miller loop over
+// the untwisted Fp12 curve.  The final exponentiation is decomposed:
+// easy part f^((p^6-1)(p^2+1)) via conjugation + p^2-Frobenius, hard
+// part via the x-based chain on 3*(p^4-p^2+1)/r with Granger-Scott
+// cyclotomic squarings (see final_exp_is_one).  Min-sig layout:
+// signatures in G1 (96 B uncompressed), pubkeys in G2 (192 B),
+// try-and-increment SHA-256 hash-to-G1 with cofactor clearing.
+//
+// Arithmetic: 6x64-bit Montgomery representation with __int128 CIOS
+// multiplication — ~30x faster end-to-end than the bigint Python path
+// (one aggregate-QC check drops from ~750 ms to ~25 ms on one core),
+// which is what makes qc_mode failover usable on CPU-only hosts.
+//
+// The reference project has no signature code at all (SURVEY.md §2.1);
+// this file is new framework infrastructure, written from the curve
+// equations up to mirror crypto/bls.py exactly so the two paths can be
+// differentially tested against each other (tests/test_bls.py).
+
+#include <cstdint>
+#include <cstring>
+
+typedef unsigned __int128 u128;
+typedef uint64_t u64;
+
+// ---------------------------------------------------------------------------
+// Fp: integers mod P in Montgomery form (R = 2^384)
+// ---------------------------------------------------------------------------
+
+static const u64 P_LIMB[6] = {
+    0xb9feffffffffaaabULL, 0x1eabfffeb153ffffULL, 0x6730d2a0f6b0f624ULL,
+    0x64774b84f38512bfULL, 0x4b1ba7b6434bacd7ULL, 0x1a0111ea397fe69aULL};
+static const u64 R_MONT[6] = {  // 2^384 mod P == montgomery form of 1
+    0x760900000002fffdULL, 0xebf4000bc40c0002ULL, 0x5f48985753c758baULL,
+    0x77ce585370525745ULL, 0x5c071a97a256ec6dULL, 0x15f65ec3fa80e493ULL};
+static const u64 R2_MONT[6] = {  // 2^768 mod P (to-Montgomery multiplier)
+    0xf4df1f341c341746ULL, 0x0a76e6a609d104f1ULL, 0x8de5476c4c95b6d5ULL,
+    0x67eb88a9939d83c0ULL, 0x9a793e85b519952dULL, 0x11988fe592cae3aaULL};
+static const u64 N0INV = 0x89f3fffcfffcfffdULL;  // -P^{-1} mod 2^64
+
+struct Fp {
+  u64 v[6];
+};
+
+static inline bool fp_eq(const Fp& a, const Fp& b) {
+  for (int i = 0; i < 6; i++)
+    if (a.v[i] != b.v[i]) return false;
+  return true;
+}
+
+static inline bool fp_is_zero(const Fp& a) {
+  for (int i = 0; i < 6; i++)
+    if (a.v[i]) return false;
+  return true;
+}
+
+// a >= b on raw limbs
+static inline bool geq(const u64* a, const u64* b) {
+  for (int i = 5; i >= 0; i--) {
+    if (a[i] > b[i]) return true;
+    if (a[i] < b[i]) return false;
+  }
+  return true;  // equal
+}
+
+static inline void sub_limbs(u64* r, const u64* a, const u64* b) {
+  u128 borrow = 0;
+  for (int i = 0; i < 6; i++) {
+    u128 d = (u128)a[i] - b[i] - borrow;
+    r[i] = (u64)d;
+    borrow = (d >> 64) & 1;
+  }
+}
+
+static inline void fp_add(Fp& r, const Fp& a, const Fp& b) {
+  u128 carry = 0;
+  u64 t[6];
+  for (int i = 0; i < 6; i++) {
+    u128 s = (u128)a.v[i] + b.v[i] + carry;
+    t[i] = (u64)s;
+    carry = s >> 64;
+  }
+  if (carry || geq(t, P_LIMB)) sub_limbs(r.v, t, P_LIMB);
+  else memcpy(r.v, t, sizeof t);
+}
+
+static inline void fp_sub(Fp& r, const Fp& a, const Fp& b) {
+  u128 borrow = 0;
+  u64 t[6];
+  for (int i = 0; i < 6; i++) {
+    u128 d = (u128)a.v[i] - b.v[i] - borrow;
+    t[i] = (u64)d;
+    borrow = (d >> 64) & 1;
+  }
+  if (borrow) {
+    u128 carry = 0;
+    for (int i = 0; i < 6; i++) {
+      u128 s = (u128)t[i] + P_LIMB[i] + carry;
+      t[i] = (u64)s;
+      carry = s >> 64;
+    }
+  }
+  memcpy(r.v, t, sizeof t);
+}
+
+static inline void fp_neg(Fp& r, const Fp& a) {
+  if (fp_is_zero(a)) { r = a; return; }
+  sub_limbs(r.v, P_LIMB, a.v);
+}
+
+// Montgomery CIOS multiply: r = a*b*R^{-1} mod P
+static void fp_mul(Fp& r, const Fp& a, const Fp& b) {
+  u64 t[8] = {0};
+  for (int i = 0; i < 6; i++) {
+    u128 carry = 0;
+    for (int j = 0; j < 6; j++) {
+      u128 s = (u128)t[j] + (u128)a.v[i] * b.v[j] + carry;
+      t[j] = (u64)s;
+      carry = s >> 64;
+    }
+    u128 s = (u128)t[6] + carry;
+    t[6] = (u64)s;
+    t[7] = (u64)(s >> 64);
+
+    u64 m = t[0] * N0INV;
+    carry = 0;
+    u128 s0 = (u128)t[0] + (u128)m * P_LIMB[0];
+    carry = s0 >> 64;
+    for (int j = 1; j < 6; j++) {
+      u128 s2 = (u128)t[j] + (u128)m * P_LIMB[j] + carry;
+      t[j - 1] = (u64)s2;
+      carry = s2 >> 64;
+    }
+    u128 s3 = (u128)t[6] + carry;
+    t[5] = (u64)s3;
+    t[6] = t[7] + (u64)(s3 >> 64);
+    t[7] = 0;
+  }
+  if (t[6] || geq(t, P_LIMB)) sub_limbs(r.v, t, P_LIMB);
+  else memcpy(r.v, t, 6 * sizeof(u64));
+}
+
+static inline void fp_sq(Fp& r, const Fp& a) { fp_mul(r, a, a); }
+
+static const Fp FP_ZERO = {{0, 0, 0, 0, 0, 0}};
+
+static Fp FP_ONE;  // R mod P, set in init
+
+static void fp_from_limbs(Fp& r, const u64* raw) {
+  // raw (standard form) -> Montgomery: montmul(raw, R^2)
+  Fp t;
+  memcpy(t.v, raw, sizeof t.v);
+  Fp r2;
+  memcpy(r2.v, R2_MONT, sizeof r2.v);
+  fp_mul(r, t, r2);
+}
+
+static void fp_to_limbs(u64* raw, const Fp& a) {
+  // Montgomery -> standard: montmul(a, 1)
+  Fp one = {{1, 0, 0, 0, 0, 0}}, t;
+  fp_mul(t, a, one);
+  memcpy(raw, t.v, sizeof t.v);
+}
+
+// big-endian 48 bytes -> Fp (returns false if >= P)
+static bool fp_from_be(Fp& r, const uint8_t* be) {
+  u64 raw[6];
+  for (int i = 0; i < 6; i++) {
+    u64 w = 0;
+    for (int j = 0; j < 8; j++) w = (w << 8) | be[(5 - i) * 8 + j];
+    raw[i] = w;
+  }
+  if (geq(raw, P_LIMB)) return false;  // non-canonical (geq covers == P)
+  fp_from_limbs(r, raw);
+  return true;
+}
+
+// pow by a standard-form limb exponent (MSB-first), base in Montgomery
+static void fp_pow_limbs(Fp& r, const Fp& base, const u64* e, int nlimbs) {
+  Fp acc = FP_ONE;
+  bool started = false;
+  for (int i = nlimbs - 1; i >= 0; i--) {
+    for (int b = 63; b >= 0; b--) {
+      if (started) fp_sq(acc, acc);
+      if ((e[i] >> b) & 1) {
+        if (started) fp_mul(acc, acc, base);
+        else { acc = base; started = true; }
+      }
+    }
+  }
+  r = started ? acc : FP_ONE;
+}
+
+static const u64 P_MINUS2[6] = {
+    0xb9feffffffffaaa9ULL, 0x1eabfffeb153ffffULL, 0x6730d2a0f6b0f624ULL,
+    0x64774b84f38512bfULL, 0x4b1ba7b6434bacd7ULL, 0x1a0111ea397fe69aULL};
+static const u64 P_PLUS1_DIV4[6] = {
+    0xee7fbfffffffeaabULL, 0x07aaffffac54ffffULL, 0xd9cc34a83dac3d89ULL,
+    0xd91dd2e13ce144afULL, 0x92c6e9ed90d2eb35ULL, 0x0680447a8e5ff9a6ULL};
+
+static void fp_inv(Fp& r, const Fp& a) { fp_pow_limbs(r, a, P_MINUS2, 6); }
+
+// standard-form compare (for the min(y, P-y) canonical choice)
+static bool fp_std_less(const Fp& a, const Fp& b) {
+  u64 ra[6], rb[6];
+  fp_to_limbs(ra, a);
+  fp_to_limbs(rb, b);
+  for (int i = 5; i >= 0; i--) {
+    if (ra[i] < rb[i]) return true;
+    if (ra[i] > rb[i]) return false;
+  }
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// Fp2 = Fp[u]/(u^2+1)
+// ---------------------------------------------------------------------------
+
+struct F2 {
+  Fp a, b;  // a + b*u
+};
+
+static F2 F2_ZERO_, F2_ONE_;
+
+static inline bool f2_eq(const F2& x, const F2& y) {
+  return fp_eq(x.a, y.a) && fp_eq(x.b, y.b);
+}
+static inline bool f2_is_zero(const F2& x) {
+  return fp_is_zero(x.a) && fp_is_zero(x.b);
+}
+static inline void f2_add(F2& r, const F2& x, const F2& y) {
+  fp_add(r.a, x.a, y.a);
+  fp_add(r.b, x.b, y.b);
+}
+static inline void f2_sub(F2& r, const F2& x, const F2& y) {
+  fp_sub(r.a, x.a, y.a);
+  fp_sub(r.b, x.b, y.b);
+}
+static inline void f2_neg(F2& r, const F2& x) {
+  fp_neg(r.a, x.a);
+  fp_neg(r.b, x.b);
+}
+static void f2_mul(F2& r, const F2& x, const F2& y) {
+  Fp t0, t1, t2, t3;
+  fp_mul(t0, x.a, y.a);
+  fp_mul(t1, x.b, y.b);
+  fp_mul(t2, x.a, y.b);
+  fp_mul(t3, x.b, y.a);
+  fp_sub(r.a, t0, t1);
+  fp_add(r.b, t2, t3);
+}
+static void f2_sq(F2& r, const F2& x) {
+  Fp s, d, t;
+  fp_add(s, x.a, x.b);
+  fp_sub(d, x.a, x.b);
+  fp_mul(t, x.a, x.b);
+  fp_mul(r.a, s, d);
+  fp_add(r.b, t, t);
+}
+static void f2_inv(F2& r, const F2& x) {
+  Fp a2, b2, d, di;
+  fp_sq(a2, x.a);
+  fp_sq(b2, x.b);
+  fp_add(d, a2, b2);
+  fp_inv(di, d);
+  fp_mul(r.a, x.a, di);
+  Fp nb;
+  fp_neg(nb, x.b);
+  fp_mul(r.b, nb, di);
+}
+// x * (1+u)
+static inline void f2_mul_xi(F2& r, const F2& x) {
+  Fp na, nb;
+  fp_sub(na, x.a, x.b);
+  fp_add(nb, x.a, x.b);
+  r.a = na;
+  r.b = nb;
+}
+
+// ---------------------------------------------------------------------------
+// Fp6 = Fp2[v]/(v^3 - (1+u)),  Fp12 = Fp6[w]/(w^2 - v)
+// ---------------------------------------------------------------------------
+
+struct F6 {
+  F2 c0, c1, c2;
+};
+struct F12 {
+  F6 a, b;
+};
+
+static F6 F6_ZERO_, F6_ONE_;
+static F12 F12_ONE_;
+
+static inline bool f6_eq(const F6& x, const F6& y) {
+  return f2_eq(x.c0, y.c0) && f2_eq(x.c1, y.c1) && f2_eq(x.c2, y.c2);
+}
+static inline void f6_add(F6& r, const F6& x, const F6& y) {
+  f2_add(r.c0, x.c0, y.c0);
+  f2_add(r.c1, x.c1, y.c1);
+  f2_add(r.c2, x.c2, y.c2);
+}
+static inline void f6_sub(F6& r, const F6& x, const F6& y) {
+  f2_sub(r.c0, x.c0, y.c0);
+  f2_sub(r.c1, x.c1, y.c1);
+  f2_sub(r.c2, x.c2, y.c2);
+}
+static inline void f6_neg(F6& r, const F6& x) {
+  f2_neg(r.c0, x.c0);
+  f2_neg(r.c1, x.c1);
+  f2_neg(r.c2, x.c2);
+}
+static void f6_mul(F6& r, const F6& x, const F6& y) {
+  F2 t00, t11, t22, s, u1, u2;
+  f2_mul(t00, x.c0, y.c0);
+  f2_mul(t11, x.c1, y.c1);
+  f2_mul(t22, x.c2, y.c2);
+  // c0 = t00 + xi*(a1*b2 + a2*b1)
+  f2_mul(u1, x.c1, y.c2);
+  f2_mul(u2, x.c2, y.c1);
+  f2_add(s, u1, u2);
+  f2_mul_xi(s, s);
+  F2 c0, c1, c2;
+  f2_add(c0, t00, s);
+  // c1 = a0*b1 + a1*b0 + xi*t22
+  f2_mul(u1, x.c0, y.c1);
+  f2_mul(u2, x.c1, y.c0);
+  f2_add(s, u1, u2);
+  F2 x22;
+  f2_mul_xi(x22, t22);
+  f2_add(c1, s, x22);
+  // c2 = a0*b2 + a2*b0 + t11
+  f2_mul(u1, x.c0, y.c2);
+  f2_mul(u2, x.c2, y.c0);
+  f2_add(s, u1, u2);
+  f2_add(c2, s, t11);
+  r.c0 = c0;
+  r.c1 = c1;
+  r.c2 = c2;
+}
+// x * v: (c0, c1, c2) -> (xi*c2, c0, c1)
+static void f6_mul_v(F6& r, const F6& x) {
+  F2 t;
+  f2_mul_xi(t, x.c2);
+  F2 c1 = x.c0, c2 = x.c1;
+  r.c0 = t;
+  r.c1 = c1;
+  r.c2 = c2;
+}
+static void f6_inv(F6& r, const F6& x) {
+  F2 t0, t1, t2, s, u1, u2, delta, dinv;
+  f2_sq(t0, x.c0);
+  f2_mul(u1, x.c1, x.c2);
+  f2_mul_xi(u1, u1);
+  f2_sub(t0, t0, u1);  // a0^2 - xi*a1*a2
+  f2_sq(t1, x.c2);
+  f2_mul_xi(t1, t1);
+  f2_mul(u1, x.c0, x.c1);
+  f2_sub(t1, t1, u1);  // xi*a2^2 - a0*a1
+  f2_sq(t2, x.c1);
+  f2_mul(u1, x.c0, x.c2);
+  f2_sub(t2, t2, u1);  // a1^2 - a0*a2
+  f2_mul(u1, x.c1, t2);
+  f2_mul(u2, x.c2, t1);
+  f2_add(s, u1, u2);
+  f2_mul_xi(s, s);
+  f2_mul(u1, x.c0, t0);
+  f2_add(delta, u1, s);
+  f2_inv(dinv, delta);
+  f2_mul(r.c0, t0, dinv);
+  f2_mul(r.c1, t1, dinv);
+  f2_mul(r.c2, t2, dinv);
+}
+
+static inline bool f12_eq(const F12& x, const F12& y) {
+  return f6_eq(x.a, y.a) && f6_eq(x.b, y.b);
+}
+static void f12_mul(F12& r, const F12& x, const F12& y) {
+  F6 t0, t1, u1, u2, c0, c1;
+  f6_mul(t0, x.a, y.a);
+  f6_mul(t1, x.b, y.b);
+  f6_mul_v(u1, t1);
+  f6_add(c0, t0, u1);
+  f6_mul(u1, x.a, y.b);
+  f6_mul(u2, x.b, y.a);
+  f6_add(c1, u1, u2);
+  r.a = c0;
+  r.b = c1;
+}
+static inline void f12_sq(F12& r, const F12& x) { f12_mul(r, x, x); }
+static inline void f12_conj(F12& r, const F12& x) {
+  r.a = x.a;
+  f6_neg(r.b, x.b);
+}
+static void f12_inv(F12& r, const F12& x) {
+  F6 t0, t1, d, di;
+  f6_mul(t0, x.a, x.a);
+  f6_mul(t1, x.b, x.b);
+  f6_mul_v(t1, t1);
+  f6_sub(d, t0, t1);
+  f6_inv(di, d);
+  f6_mul(r.a, x.a, di);
+  F6 nb;
+  f6_neg(nb, x.b);
+  f6_mul(r.b, nb, di);
+}
+static inline void f12_add(F12& r, const F12& x, const F12& y) {
+  f6_add(r.a, x.a, y.a);
+  f6_add(r.b, x.b, y.b);
+}
+static inline void f12_sub(F12& r, const F12& x, const F12& y) {
+  f6_sub(r.a, x.a, y.a);
+  f6_sub(r.b, x.b, y.b);
+}
+static inline void f12_neg(F12& r, const F12& x) {
+  f6_neg(r.a, x.a);
+  f6_neg(r.b, x.b);
+}
+
+// ---------------------------------------------------------------------------
+// Curve points.  G1 over Fp, G2 over Fp2, E12 over Fp12 (for the Miller
+// loop, mirroring crypto/bls.py's untwisted formulation).  Affine with an
+// infinity flag; Jacobian ladders for scalar multiplication.
+// ---------------------------------------------------------------------------
+
+template <class F>
+struct Pt {
+  F x, y;
+  bool inf;
+};
+
+// field op table via overloads
+static inline void el_add(Fp& r, const Fp& a, const Fp& b) { fp_add(r, a, b); }
+static inline void el_sub(Fp& r, const Fp& a, const Fp& b) { fp_sub(r, a, b); }
+static inline void el_neg(Fp& r, const Fp& a) { fp_neg(r, a); }
+static inline void el_mul(Fp& r, const Fp& a, const Fp& b) { fp_mul(r, a, b); }
+static inline void el_sq(Fp& r, const Fp& a) { fp_sq(r, a); }
+static inline void el_inv(Fp& r, const Fp& a) { fp_inv(r, a); }
+static inline bool el_eq(const Fp& a, const Fp& b) { return fp_eq(a, b); }
+static inline bool el_is_zero(const Fp& a) { return fp_is_zero(a); }
+static inline void el_one(Fp& r) { r = FP_ONE; }
+
+static inline void el_add(F2& r, const F2& a, const F2& b) { f2_add(r, a, b); }
+static inline void el_sub(F2& r, const F2& a, const F2& b) { f2_sub(r, a, b); }
+static inline void el_neg(F2& r, const F2& a) { f2_neg(r, a); }
+static inline void el_mul(F2& r, const F2& a, const F2& b) { f2_mul(r, a, b); }
+static inline void el_sq(F2& r, const F2& a) { f2_sq(r, a); }
+static inline void el_inv(F2& r, const F2& a) { f2_inv(r, a); }
+static inline bool el_eq(const F2& a, const F2& b) { return f2_eq(a, b); }
+static inline bool el_is_zero(const F2& a) { return f2_is_zero(a); }
+static inline void el_one(F2& r) { r = F2_ONE_; }
+
+static inline void el_add(F12& r, const F12& a, const F12& b) { f12_add(r, a, b); }
+static inline void el_sub(F12& r, const F12& a, const F12& b) { f12_sub(r, a, b); }
+static inline void el_neg(F12& r, const F12& a) { f12_neg(r, a); }
+static inline void el_mul(F12& r, const F12& a, const F12& b) { f12_mul(r, a, b); }
+static inline void el_sq(F12& r, const F12& a) { f12_sq(r, a); }
+static inline void el_inv(F12& r, const F12& a) { f12_inv(r, a); }
+static inline bool el_eq(const F12& a, const F12& b) { return f12_eq(a, b); }
+static inline bool el_is_zero(const F12& a) {
+  return f6_eq(a.a, F6_ZERO_) && f6_eq(a.b, F6_ZERO_);
+}
+static inline void el_one(F12& r) { r = F12_ONE_; }
+
+template <class F>
+static inline void el_muls(F& r, const F& a, int s) {
+  // multiply by a small positive int via repeated addition (s <= 8 here)
+  F acc = a;
+  for (int i = 1; i < s; i++) el_add(acc, acc, a);
+  r = acc;
+}
+
+// affine add (mirrors bls.py _Curve.add_pts)
+template <class F>
+static Pt<F> pt_add(const Pt<F>& p1, const Pt<F>& p2) {
+  if (p1.inf) return p2;
+  if (p2.inf) return p1;
+  F lam;
+  if (el_eq(p1.x, p2.x)) {
+    if (!el_eq(p1.y, p2.y)) return {p1.x, p1.y, true};
+    if (el_is_zero(p1.y)) return {p1.x, p1.y, true};
+    F x2, n, d, di;
+    el_sq(x2, p1.x);
+    el_muls(n, x2, 3);
+    el_add(d, p1.y, p1.y);
+    el_inv(di, d);
+    el_mul(lam, n, di);
+  } else {
+    F n, d, di;
+    el_sub(n, p2.y, p1.y);
+    el_sub(d, p2.x, p1.x);
+    el_inv(di, d);
+    el_mul(lam, n, di);
+  }
+  F x3, y3, t;
+  el_sq(x3, lam);
+  el_sub(x3, x3, p1.x);
+  el_sub(x3, x3, p2.x);
+  el_sub(t, p1.x, x3);
+  el_mul(y3, lam, t);
+  el_sub(y3, y3, p1.y);
+  return {x3, y3, false};
+}
+
+template <class F>
+static inline Pt<F> pt_neg(const Pt<F>& p) {
+  if (p.inf) return p;
+  F ny;
+  el_neg(ny, p.y);
+  return {p.x, ny, false};
+}
+
+// Jacobian double (dbl-2009-l, as in bls.py _jdbl).  R may alias Pj, so
+// every output is computed into a local before the writeback.
+template <class F>
+static void jdbl(F* R, const F* Pj) {
+  F A, B, C, D, E, Ff, t, t2, X3, Y3, Z3;
+  el_sq(A, Pj[0]);
+  el_sq(B, Pj[1]);
+  el_sq(C, B);
+  el_add(t, Pj[0], B);
+  el_sq(t, t);
+  el_sub(t, t, A);
+  el_sub(t, t, C);
+  el_muls(D, t, 2);
+  el_muls(E, A, 3);
+  el_sq(Ff, E);
+  el_muls(t, D, 2);
+  el_sub(X3, Ff, t);
+  el_sub(t, D, X3);
+  el_mul(t, E, t);
+  el_muls(t2, C, 8);
+  el_sub(Y3, t, t2);
+  el_mul(t, Pj[1], Pj[2]);
+  el_muls(Z3, t, 2);
+  R[0] = X3;
+  R[1] = Y3;
+  R[2] = Z3;
+}
+
+// Jacobian mixed/general add (add-2007-bl, as in bls.py _jadd).
+// Returns false if the add hit p + (-p) (infinity mid-ladder).
+template <class F>
+static bool jadd(F* R, const F* Pj, const F* Q) {
+  F Z1Z1, Z2Z2, U1, U2, S1, S2, t;
+  el_sq(Z1Z1, Pj[2]);
+  el_sq(Z2Z2, Q[2]);
+  el_mul(U1, Pj[0], Z2Z2);
+  el_mul(U2, Q[0], Z1Z1);
+  el_mul(t, Pj[1], Q[2]);
+  el_mul(S1, t, Z2Z2);
+  el_mul(t, Q[1], Pj[2]);
+  el_mul(S2, t, Z1Z1);
+  if (el_eq(U1, U2)) {
+    if (!el_eq(S1, S2)) return false;
+    jdbl(R, Pj);
+    return true;
+  }
+  F H, I, J, rr, V, t2, X3, Y3, Z3;
+  el_sub(H, U2, U1);
+  el_muls(t, H, 2);
+  el_sq(I, t);
+  el_mul(J, H, I);
+  el_sub(t, S2, S1);
+  el_muls(rr, t, 2);
+  el_mul(V, U1, I);
+  el_sq(t, rr);
+  el_sub(t, t, J);
+  el_muls(t2, V, 2);
+  el_sub(X3, t, t2);
+  el_sub(t, V, X3);
+  el_mul(t, rr, t);
+  el_mul(t2, S1, J);
+  el_muls(t2, t2, 2);
+  el_sub(Y3, t, t2);
+  el_mul(t, H, Pj[2]);
+  el_mul(Z3, t, Q[2]);
+  el_muls(Z3, Z3, 2);
+  R[0] = X3;
+  R[1] = Y3;
+  R[2] = Z3;
+  return true;
+}
+
+// MSB-first double-and-add over big-endian bit source.  `fail` reports a
+// mid-ladder infinity (the subgroup-check probe relies on it).
+template <class F>
+static Pt<F> pt_mul(const Pt<F>& p, const uint8_t* ebytes, int elen,
+                    bool* fail) {
+  *fail = false;
+  if (p.inf) return p;
+  F base[3];
+  base[0] = p.x;
+  base[1] = p.y;
+  el_one(base[2]);
+  F acc[3];
+  bool started = false;
+  for (int i = 0; i < elen; i++) {
+    for (int b = 7; b >= 0; b--) {
+      if (started) jdbl(acc, acc);
+      if ((ebytes[i] >> b) & 1) {
+        if (!started) {
+          memcpy(acc, base, sizeof acc);
+          started = true;
+        } else if (!jadd(acc, acc, base)) {
+          *fail = true;
+          return {p.x, p.y, true};
+        }
+      }
+    }
+  }
+  if (!started) return {p.x, p.y, true};
+  if (el_is_zero(acc[2])) return {p.x, p.y, true};
+  F zi, zi2, zi3, xr, yr;
+  el_inv(zi, acc[2]);
+  el_sq(zi2, zi);
+  el_mul(zi3, zi2, zi);
+  el_mul(xr, acc[0], zi2);
+  el_mul(yr, acc[1], zi3);
+  return {xr, yr, false};
+}
+
+// y^2 == x^3 + b
+template <class F>
+static bool on_curve(const Pt<F>& p, const F& b) {
+  if (p.inf) return true;
+  F y2, x3, t;
+  el_sq(y2, p.y);
+  el_sq(t, p.x);
+  el_mul(x3, t, p.x);
+  el_add(x3, x3, b);
+  return el_eq(y2, x3);
+}
+
+// ---------------------------------------------------------------------------
+// Constants (set in init): curve b's, generators, scalar byte strings
+// ---------------------------------------------------------------------------
+
+static Fp G1_B;              // 4
+static F2 G2_B;              // 4*(1+u)
+static Pt<F2> G2_GEN_;       // pubkey-side generator
+static uint8_t R_MINUS1_BE[32];   // r-1 big-endian (subgroup probes)
+static uint8_t H_EFF_BE[16];      // G1 cofactor big-endian
+static int initialized = 0;
+
+static const char* G2_GEN_HEX[4] = {
+    // x0, x1, y0, y1 big-endian hex (96 chars each)
+    "024aa2b2f08f0a91260805272dc51051c6e47ad4fa403b02b4510b647ae3d177"
+    "0bac0326a805bbefd48056c8c121bdb8",
+    "13e02b6052719f607dacd3a088274f65596bd0d09920b61ab5da61bbdc7f5049"
+    "334cf11213945d57e5ac7d055d042b7e",
+    "0ce5d527727d6e118cc9cdc6da2e351aadfd9baa8cbdd3a76d429a695160d12c"
+    "923ac9cc3baca289e193548608b82801",
+    "0606c4a02ea734cc32acd2b02bc28b99cb3e287e85a763af267492ab572e99ab"
+    "3f370d275cec1da1aaa9075ff05f79be"};
+
+static int hexval(char c) {
+  if (c >= '0' && c <= '9') return c - '0';
+  if (c >= 'a' && c <= 'f') return c - 'a' + 10;
+  if (c >= 'A' && c <= 'F') return c - 'A' + 10;
+  return -1;
+}
+
+static void hex_to_bytes(uint8_t* out, const char* hex, int nbytes) {
+  int n = (int)strlen(hex);
+  // right-align: leading zero bytes if hex shorter than nbytes*2
+  memset(out, 0, nbytes);
+  int bi = nbytes - 1;
+  for (int i = n - 1; i >= 0; i -= 2) {
+    int lo = hexval(hex[i]);
+    int hi = (i - 1 >= 0) ? hexval(hex[i - 1]) : 0;
+    out[bi--] = (uint8_t)((hi << 4) | lo);
+  }
+}
+
+static bool fp_from_hex(Fp& r, const char* hex) {
+  uint8_t be[48];
+  hex_to_bytes(be, hex, 48);
+  return fp_from_be(r, be);
+}
+
+static void bls_init() {
+  if (initialized) return;
+  memcpy(FP_ONE.v, R_MONT, sizeof FP_ONE.v);
+  F2_ZERO_ = {FP_ZERO, FP_ZERO};
+  F2_ONE_ = {FP_ONE, FP_ZERO};
+  F6_ZERO_ = {F2_ZERO_, F2_ZERO_, F2_ZERO_};
+  F6_ONE_ = {F2_ONE_, F2_ZERO_, F2_ZERO_};
+  F12_ONE_ = {F6_ONE_, F6_ZERO_};
+
+  u64 four[6] = {4, 0, 0, 0, 0, 0};
+  fp_from_limbs(G1_B, four);
+  // 4*(1+u) = 4 + 4u
+  G2_B.a = G1_B;
+  G2_B.b = G1_B;
+
+  fp_from_hex(G2_GEN_.x.a, G2_GEN_HEX[0]);
+  fp_from_hex(G2_GEN_.x.b, G2_GEN_HEX[1]);
+  fp_from_hex(G2_GEN_.y.a, G2_GEN_HEX[2]);
+  fp_from_hex(G2_GEN_.y.b, G2_GEN_HEX[3]);
+  G2_GEN_.inf = false;
+
+  // r - 1 big-endian
+  static const u64 RM1[4] = {0xffffffff00000000ULL, 0x53bda402fffe5bfeULL,
+                             0x3339d80809a1d805ULL, 0x73eda753299d7d48ULL};
+  for (int i = 0; i < 4; i++)
+    for (int j = 0; j < 8; j++)
+      R_MINUS1_BE[i * 8 + j] = (uint8_t)(RM1[3 - i] >> (8 * (7 - j)));
+  static const u64 HE[2] = {0x8c00aaab0000aaabULL, 0x396c8c005555e156ULL};
+  for (int i = 0; i < 2; i++)
+    for (int j = 0; j < 8; j++)
+      H_EFF_BE[i * 8 + j] = (uint8_t)(HE[1 - i] >> (8 * (7 - j)));
+
+  initialized = 1;
+}
+
+// ---------------------------------------------------------------------------
+// SHA-256 (FIPS 180-4) — for hash_to_g1's try-and-increment
+// ---------------------------------------------------------------------------
+
+static const uint32_t K256[64] = {
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
+    0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
+    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786,
+    0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
+    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
+    0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a,
+    0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
+
+static inline uint32_t rotr32(uint32_t x, int n) {
+  return (x >> n) | (x << (32 - n));
+}
+
+static void sha256(const uint8_t* data, size_t len, uint8_t out[32]) {
+  uint32_t h[8] = {0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+                   0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19};
+  uint64_t total = (uint64_t)len * 8;
+  uint8_t block[64];
+  size_t off = 0;
+  bool final_done = false;
+  bool len_done = false;
+  while (!final_done) {
+    size_t take = len > off ? (len - off > 64 ? 64 : len - off) : 0;
+    memcpy(block, data + off, take);
+    off += take;
+    if (take < 64) {
+      size_t pos = take;
+      if (!len_done) {
+        block[pos++] = 0x80;
+        len_done = true;
+      }
+      if (pos <= 56) {
+        memset(block + pos, 0, 56 - pos);
+        for (int i = 0; i < 8; i++)
+          block[56 + i] = (uint8_t)(total >> (8 * (7 - i)));
+        final_done = true;
+      } else {
+        memset(block + pos, 0, 64 - pos);
+      }
+    }
+    uint32_t w[64];
+    for (int i = 0; i < 16; i++)
+      w[i] = ((uint32_t)block[i * 4] << 24) | ((uint32_t)block[i * 4 + 1] << 16) |
+             ((uint32_t)block[i * 4 + 2] << 8) | block[i * 4 + 3];
+    for (int i = 16; i < 64; i++) {
+      uint32_t s0 = rotr32(w[i - 15], 7) ^ rotr32(w[i - 15], 18) ^ (w[i - 15] >> 3);
+      uint32_t s1 = rotr32(w[i - 2], 17) ^ rotr32(w[i - 2], 19) ^ (w[i - 2] >> 10);
+      w[i] = w[i - 16] + s0 + w[i - 7] + s1;
+    }
+    uint32_t a = h[0], b = h[1], c = h[2], d = h[3], e = h[4], f = h[5],
+             g = h[6], hh = h[7];
+    for (int i = 0; i < 64; i++) {
+      uint32_t S1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
+      uint32_t ch = (e & f) ^ (~e & g);
+      uint32_t t1 = hh + S1 + ch + K256[i] + w[i];
+      uint32_t S0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
+      uint32_t mj = (a & b) ^ (a & c) ^ (b & c);
+      uint32_t t2 = S0 + mj;
+      hh = g; g = f; f = e; e = d + t1;
+      d = c; c = b; b = a; a = t1 + t2;
+    }
+    h[0] += a; h[1] += b; h[2] += c; h[3] += d;
+    h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
+  }
+  for (int i = 0; i < 8; i++) {
+    out[i * 4] = (uint8_t)(h[i] >> 24);
+    out[i * 4 + 1] = (uint8_t)(h[i] >> 16);
+    out[i * 4 + 2] = (uint8_t)(h[i] >> 8);
+    out[i * 4 + 3] = (uint8_t)h[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// hash to G1 (try-and-increment, mirroring bls.py exactly)
+// ---------------------------------------------------------------------------
+
+// reduce a 64-byte big-endian value mod P into Fp (Montgomery)
+static void fp_from_be64_mod(Fp& r, const uint8_t* be64) {
+  // split as hi*2^256 + lo; compute in Montgomery arithmetic:
+  // take 48-byte chunks: v = b[0..15]*2^384 + b[16..63] (48 bytes)
+  // simpler: iterate 8-byte words MSB-first, acc = acc*2^64 + word
+  Fp acc = FP_ZERO;
+  u64 two64_raw[6] = {0, 1, 0, 0, 0, 0};  // 2^64
+  Fp two64;
+  fp_from_limbs(two64, two64_raw);
+  for (int i = 0; i < 8; i++) {
+    u64 w = 0;
+    for (int j = 0; j < 8; j++) w = (w << 8) | be64[i * 8 + j];
+    u64 wr[6] = {w, 0, 0, 0, 0, 0};
+    Fp wf;
+    fp_from_limbs(wf, wr);
+    fp_mul(acc, acc, two64);
+    fp_add(acc, acc, wf);
+  }
+  r = acc;
+}
+
+static Pt<Fp> hash_to_g1(const uint8_t* msg, size_t msg_len,
+                         const uint8_t* dst, size_t dst_len) {
+  // buffer: dst || ctr(4, BE) || msg [|| 0x01]
+  size_t blen = dst_len + 4 + msg_len + 1;
+  uint8_t* buf = new uint8_t[blen];
+  memcpy(buf, dst, dst_len);
+  memcpy(buf + dst_len + 4, msg, msg_len);
+  Pt<Fp> out = {FP_ZERO, FP_ZERO, true};
+  for (uint32_t ctr = 0;; ctr++) {
+    buf[dst_len] = (uint8_t)(ctr >> 24);
+    buf[dst_len + 1] = (uint8_t)(ctr >> 16);
+    buf[dst_len + 2] = (uint8_t)(ctr >> 8);
+    buf[dst_len + 3] = (uint8_t)ctr;
+    uint8_t h[64];
+    sha256(buf, dst_len + 4 + msg_len, h);
+    buf[dst_len + 4 + msg_len] = 0x01;
+    sha256(buf, dst_len + 4 + msg_len + 1, h + 32);
+    Fp x, y2, y, chk;
+    fp_from_be64_mod(x, h);
+    Fp x2, x3;
+    fp_sq(x2, x);
+    fp_mul(x3, x2, x);
+    fp_add(y2, x3, G1_B);
+    fp_pow_limbs(y, y2, P_PLUS1_DIV4, 6);
+    fp_sq(chk, y);
+    if (!fp_eq(chk, y2)) continue;
+    Fp ny;
+    fp_neg(ny, y);
+    Fp ymin = fp_std_less(y, ny) ? y : ny;  // min(y, P-y)
+    Pt<Fp> pt = {x, ymin, false};
+    bool fail = false;
+    Pt<Fp> cleared = pt_mul(pt, H_EFF_BE, 16, &fail);
+    if (!fail && !cleared.inf) {
+      out = cleared;
+      break;
+    }
+  }
+  delete[] buf;
+  return out;
+}
+
+// ---------------------------------------------------------------------------
+// Miller loop + final exponentiation (mirrors bls.py's untwisted form)
+// ---------------------------------------------------------------------------
+
+static const u64 BLS_X_ABS = 0xD201000000010000ULL;
+
+// Projective, inversion-free Miller loop on the twist.
+//
+// Every point in the loop is the untwist psi(x', y') = (x' v^2/xi,
+// y' v w/xi) of a twist point, so the walker stays on E'(Fp2) in
+// homogeneous projective coordinates and the line through two untwisted
+// points, evaluated at the embedded P = (xp, yp), is SPARSE:
+//
+//   l = c0 * 1 + c1 * (v w) + c2 * (v^2 w),   c_i in Fp2
+//
+// with (after clearing denominators by an Fp2 scale factor, which is
+// harmless: any c in Fp2* satisfies c^(p^2-1) = 1, so it dies in the
+// (p^6-1)(p^2+1) easy part of the final exponentiation)
+//
+//   doubling  (W = 3X^2, S = Y Z):  c0 = -yp * 2 S Z xi,
+//             c1 = 2 S Y - W X,     c2 = W Z xp
+//   addition  (D = x2 Z - X, E = y2 Z - Y):  c0 = -yp * D Z xi,
+//             c1 = D Y - E X,       c2 = E Z xp
+//
+// Point updates are the standard a=0 projective formulas (EFD dbl-2007-bl
+// / madd-1998-cmo); no field inversion anywhere in the loop.
+
+struct TwistPt {
+  F2 X, Y, Z;
+  bool inf;
+};
+
+// multiply an Fp2 element by an embedded Fp scalar
+static inline void f2_mul_fp(F2& r, const F2& x, const Fp& s) {
+  fp_mul(r.a, x.a, s);
+  fp_mul(r.b, x.b, s);
+}
+
+// f *= (c0 + c1 (v w) + c2 (v^2 w)):  with L = (0, c1, c2) in Fp6,
+//   out.a = f.a * c0 + v * (f.b * L)
+//   out.b = f.b * c0 + f.a * L
+// where * L exploits L's zero c0 slot (6 Fp2 muls per product).
+static void f6_mul_sparse12(F6& r, const F6& x, const F2& b1, const F2& b2) {
+  F2 t11, t22, s, u1, u2, c0, c1, c2;
+  f2_mul(t11, x.c1, b1);
+  f2_mul(t22, x.c2, b2);
+  f2_mul(u1, x.c1, b2);
+  f2_mul(u2, x.c2, b1);
+  f2_add(s, u1, u2);
+  f2_mul_xi(c0, s);
+  f2_mul(u1, x.c0, b1);
+  f2_mul_xi(s, t22);
+  f2_add(c1, u1, s);
+  f2_mul(u2, x.c0, b2);
+  f2_add(c2, u2, t11);
+  r.c0 = c0;
+  r.c1 = c1;
+  r.c2 = c2;
+}
+
+static void f6_scale(F6& r, const F6& x, const F2& s) {
+  f2_mul(r.c0, x.c0, s);
+  f2_mul(r.c1, x.c1, s);
+  f2_mul(r.c2, x.c2, s);
+}
+
+static void mul_by_line(F12& f, const F2& c0, const F2& c1, const F2& c2) {
+  F6 aL, bL, ac, bc;
+  f6_mul_sparse12(bL, f.b, c1, c2);
+  f6_mul_v(bL, bL);
+  f6_mul_sparse12(aL, f.a, c1, c2);
+  f6_scale(ac, f.a, c0);
+  f6_scale(bc, f.b, c0);
+  f6_add(f.a, ac, bL);
+  f6_add(f.b, bc, aL);
+}
+
+// doubling step: T <- 2T, line coefficients out
+static void dbl_step(TwistPt& T, F2& c0, F2& c1, F2& c2, const Fp& xp,
+                     const Fp& nyp) {
+  F2 W, S, B, H, t, Y2, S2;
+  f2_sq(t, T.X);
+  f2_add(W, t, t);
+  f2_add(W, W, t);          // W = 3 X^2
+  f2_mul(S, T.Y, T.Z);      // S = Y Z
+  f2_mul(t, T.X, T.Y);
+  f2_mul(B, t, S);          // B = X Y S
+  f2_sq(t, W);
+  F2 eightB;
+  f2_add(eightB, B, B);
+  f2_add(eightB, eightB, eightB);
+  f2_add(eightB, eightB, eightB);
+  f2_sub(H, t, eightB);     // H = W^2 - 8B
+  // line first (it reads X, Y, Z before the update)
+  F2 twoS;
+  f2_add(twoS, S, S);
+  f2_mul(t, twoS, T.Z);
+  f2_mul_xi(t, t);
+  f2_mul_fp(c0, t, nyp);    // c0 = -yp * 2 S Z xi
+  f2_mul(t, twoS, T.Y);
+  F2 WX;
+  f2_mul(WX, W, T.X);
+  f2_sub(c1, t, WX);        // c1 = 2 S Y - W X
+  f2_mul(t, W, T.Z);
+  f2_mul_fp(c2, t, xp);     // c2 = W Z xp
+  // point update
+  F2 X3, Y3, Z3, fourB;
+  f2_mul(t, H, S);
+  f2_add(X3, t, t);         // X3 = 2 H S
+  f2_add(fourB, B, B);
+  f2_add(fourB, fourB, fourB);
+  f2_sub(t, fourB, H);
+  f2_mul(t, W, t);
+  f2_sq(Y2, T.Y);
+  F2 SS;
+  f2_sq(SS, S);
+  f2_mul(S2, Y2, SS);       // Y^2 S^2
+  F2 eightY2S2;
+  f2_add(eightY2S2, S2, S2);
+  f2_add(eightY2S2, eightY2S2, eightY2S2);
+  f2_add(eightY2S2, eightY2S2, eightY2S2);
+  f2_sub(Y3, t, eightY2S2); // Y3 = W(4B - H) - 8 Y^2 S^2
+  f2_mul(Z3, SS, S);
+  f2_add(Z3, Z3, Z3);
+  f2_add(Z3, Z3, Z3);
+  f2_add(Z3, Z3, Z3);       // Z3 = 8 S^3
+  T.X = X3;
+  T.Y = Y3;
+  T.Z = Z3;
+  T.inf = f2_is_zero(Z3);
+}
+
+// mixed addition step: T <- T + Q (Q affine on the twist), line out.
+// Returns false for the degenerate T == +/-Q cases (caller handles).
+static bool add_step(TwistPt& T, const Pt<F2>& Q, F2& c0, F2& c1, F2& c2,
+                     const Fp& xp, const Fp& nyp) {
+  F2 D, E, t;
+  f2_mul(t, Q.x, T.Z);
+  f2_sub(D, t, T.X);        // D = x2 Z - X
+  f2_mul(t, Q.y, T.Z);
+  f2_sub(E, t, T.Y);        // E = y2 Z - Y
+  if (f2_is_zero(D)) return false;
+  // line
+  F2 DZ;
+  f2_mul(DZ, D, T.Z);
+  f2_mul_xi(t, DZ);
+  f2_mul_fp(c0, t, nyp);    // c0 = -yp * D Z xi
+  F2 DY, EX;
+  f2_mul(DY, D, T.Y);
+  f2_mul(EX, E, T.X);
+  f2_sub(c1, DY, EX);       // c1 = D Y - E X
+  f2_mul(t, E, T.Z);
+  f2_mul_fp(c2, t, xp);     // c2 = E Z xp
+  // point update (madd-1998-cmo): A = E^2 Z - D^3 - 2 D^2 X
+  F2 D2, D3, E2, A, D2X;
+  f2_sq(D2, D);
+  f2_mul(D3, D2, D);
+  f2_sq(E2, E);
+  f2_mul(t, E2, T.Z);
+  f2_mul(D2X, D2, T.X);
+  f2_sub(A, t, D3);
+  f2_sub(A, A, D2X);
+  f2_sub(A, A, D2X);
+  F2 X3, Y3, Z3;
+  f2_mul(X3, D, A);
+  f2_sub(t, D2X, A);
+  f2_mul(t, E, t);
+  F2 D3Y;
+  f2_mul(D3Y, D3, T.Y);
+  f2_sub(Y3, t, D3Y);
+  f2_mul(Z3, D3, T.Z);
+  T.X = X3;
+  T.Y = Y3;
+  T.Z = Z3;
+  T.inf = f2_is_zero(Z3);
+  return true;
+}
+
+static void miller(F12& f, const Pt<Fp>& p1, const Pt<F2>& q2) {
+  f = F12_ONE_;
+  if (p1.inf || q2.inf) return;
+  Fp nyp;
+  fp_neg(nyp, p1.y);
+  TwistPt T = {q2.x, q2.y, F2_ONE_, false};
+  F2 c0, c1, c2;
+  int top = 63;
+  while (!((BLS_X_ABS >> top) & 1)) top--;
+  for (int b = top - 1; b >= 0; b--) {
+    f12_sq(f, f);
+    if (!T.inf) {
+      dbl_step(T, c0, c1, c2, p1.x, nyp);
+      mul_by_line(f, c0, c1, c2);
+    }
+    if ((BLS_X_ABS >> b) & 1) {
+      if (T.inf) {
+        T = {q2.x, q2.y, F2_ONE_, false};  // inf + Q
+      } else if (add_step(T, q2, c0, c1, c2, p1.x, nyp)) {
+        mul_by_line(f, c0, c1, c2);
+      } else {
+        // x-coords match: T == +/-Q.  Only reachable via hostile
+        // non-subgroup inputs; handle both soundly.
+        F2 E, t;
+        f2_mul(t, q2.y, T.Z);
+        f2_sub(E, t, T.Y);
+        if (f2_is_zero(E)) {
+          // T == Q: the addition is a doubling
+          dbl_step(T, c0, c1, c2, p1.x, nyp);
+          mul_by_line(f, c0, c1, c2);
+        } else {
+          // T == -Q: vertical line l = xp - x_T (scaled by Z xi),
+          // sparse in the w^0 part: xp Z xi - X v^2; sum is infinity
+          F12 l;
+          F2 nx;
+          l.b = F6_ZERO_;
+          f2_mul_xi(t, T.Z);
+          f2_mul_fp(l.a.c0, t, p1.x);
+          l.a.c1 = F2_ZERO_;
+          f2_neg(nx, T.X);
+          l.a.c2 = nx;
+          f12_mul(f, f, l);
+          T.inf = true;
+        }
+      }
+    }
+  }
+  // BLS parameter is negative: conjugate
+  F12 c;
+  f12_conj(c, f);
+  f = c;
+}
+
+// -- cyclotomic final exponentiation ---------------------------------------
+//
+// f^((p^12-1)/r) decomposed as (p^6-1)(p^2+1) * (p^4-p^2+1)/r:
+//   g = f^(p^6-1) = conj(f) * f^-1      (p^6-Frobenius is conjugation)
+//   h = g^(p^2) * g                      (p^2-Frobenius via gamma constants)
+//   out = h^E3, E3 = (p^4-p^2+1)/r       (binary pow, Granger-Scott
+//                                         cyclotomic squarings: h is in
+//                                         the cyclotomic subgroup, where
+//                                         squaring is ~3x cheaper)
+
+static void f2_pow_be(F2& r, const F2& base, const uint8_t* e, int elen) {
+  F2 acc = F2_ONE_;
+  bool started = false;
+  for (int i = 0; i < elen; i++) {
+    for (int b = 7; b >= 0; b--) {
+      if (started) f2_sq(acc, acc);
+      if ((e[i] >> b) & 1) {
+        if (started) f2_mul(acc, acc, base);
+        else { acc = base; started = true; }
+      }
+    }
+  }
+  r = started ? acc : F2_ONE_;
+}
+
+// gamma_k^m for m = 0..5, gamma_k = xi^((p^k-1)/6): the p^k-Frobenius
+// multiplier of basis monomial v^j w^i with m = i + 2j
+static F2 GAMMA_P1[6];
+static F2 GAMMA_P2[6];
+
+// (p^2-1)/6, big-endian hex (759 bits)
+static const char* K_P2_HEX =
+    "70b3f0c975e54be1f8697c705d30fc507a18262d12b673667b9a6188c5174d62"
+    "c65cd4d924f7127e32e188819427d584e6baef6baeba1486dd1646bd6d9ab6e6"
+    "7542fcdfbd9e8b2e5cb340905834d4ea2791da3e5eb271dbc7000004bd97b4";
+
+// (p-1)/6, big-endian hex (379 bits)
+static const char* K_P1_HEX =
+    "45582fc5eeaa66f0c849bf3b5e1f223e613e1eb7deb831fe688231ad3c829060"
+    "51caaaa72e3555549aa7ffffffff1c7";
+
+static inline void f2_conj(F2& r, const F2& x) {
+  r.a = x.a;
+  fp_neg(r.b, x.b);
+}
+
+// p-Frobenius: conjugate every Fp2 coefficient (u^p = -u since
+// p == 3 mod 4), then scale slot v^j w^i by gamma1^(i+2j)
+static void frob_p1(F12& r, const F12& x) {
+  F2 t;
+  f2_conj(r.a.c0, x.a.c0);               // m = 0
+  f2_conj(t, x.a.c1);
+  f2_mul(r.a.c1, t, GAMMA_P1[2]);        // v
+  f2_conj(t, x.a.c2);
+  f2_mul(r.a.c2, t, GAMMA_P1[4]);        // v^2
+  f2_conj(t, x.b.c0);
+  f2_mul(r.b.c0, t, GAMMA_P1[1]);        // w
+  f2_conj(t, x.b.c1);
+  f2_mul(r.b.c1, t, GAMMA_P1[3]);        // w v
+  f2_conj(t, x.b.c2);
+  f2_mul(r.b.c2, t, GAMMA_P1[5]);        // w v^2
+}
+
+// p^2-Frobenius: coefficients are fixed by Frob (it is the identity on
+// Fp2 here since p^2 == 1 mod 8 makes u^(p^2) = u); each basis slot
+// v^j w^i picks up gamma2^(i+2j)
+static void frob_p2(F12& r, const F12& x) {
+  r.a.c0 = x.a.c0;                       // m = 0
+  f2_mul(r.a.c1, x.a.c1, GAMMA_P2[2]);   // v
+  f2_mul(r.a.c2, x.a.c2, GAMMA_P2[4]);   // v^2
+  f2_mul(r.b.c0, x.b.c0, GAMMA_P2[1]);   // w
+  f2_mul(r.b.c1, x.b.c1, GAMMA_P2[3]);   // w v
+  f2_mul(r.b.c2, x.b.c2, GAMMA_P2[5]);   // w v^2
+}
+
+// Fp4 square: (a + b*t)^2 with t^2 = xi -> (a^2 + xi*b^2, 2ab)
+static inline void fp4_sq(F2& c, F2& d, const F2& a, const F2& b) {
+  F2 a2, b2, t;
+  f2_sq(a2, a);
+  f2_sq(b2, b);
+  f2_mul_xi(t, b2);
+  f2_add(c, a2, t);
+  f2_mul(t, a, b);
+  f2_add(d, t, t);
+}
+
+// Granger-Scott cyclotomic square (same Fp2[v]/(v^3-xi), Fp6[w]/(w^2-v)
+// tower as the published formulas; valid only for elements of the
+// cyclotomic subgroup — which final_exp_is_one guarantees)
+static void cyc_sq(F12& r, const F12& x) {
+  const F2 &z0 = x.a.c0, &z4 = x.a.c1, &z3 = x.a.c2;
+  const F2 &z2 = x.b.c0, &z1 = x.b.c1, &z5 = x.b.c2;
+  F2 t0, t1, t2, t3, s;
+
+  F2 n0, n1, n2, n3, n4, n5;
+  fp4_sq(t0, t1, z0, z1);
+  // n0 = 3t0 - 2z0 ; n1 = 3t1 + 2z1
+  f2_sub(s, t0, z0);
+  f2_add(s, s, s);
+  f2_add(n0, s, t0);
+  f2_add(s, t1, z1);
+  f2_add(s, s, s);
+  f2_add(n1, s, t1);
+
+  fp4_sq(t0, t1, z2, z3);
+  fp4_sq(t2, t3, z4, z5);
+  // n4 = 3t0 - 2z4 ; n5 = 3t1 + 2z5
+  f2_sub(s, t0, z4);
+  f2_add(s, s, s);
+  f2_add(n4, s, t0);
+  f2_add(s, t1, z5);
+  f2_add(s, s, s);
+  f2_add(n5, s, t1);
+  // n2 = 3*xi*t3 + 2z2 ; n3 = 3t2 - 2z3
+  F2 xt3;
+  f2_mul_xi(xt3, t3);
+  f2_add(s, xt3, z2);
+  f2_add(s, s, s);
+  f2_add(n2, s, xt3);
+  f2_sub(s, t2, z3);
+  f2_add(s, s, s);
+  f2_add(n3, s, t2);
+
+  r.a.c0 = n0;
+  r.a.c1 = n4;
+  r.a.c2 = n3;
+  r.b.c0 = n2;
+  r.b.c1 = n1;
+  r.b.c2 = n5;
+}
+
+// f^|x| for the BLS parameter magnitude (64 bits, Hamming weight 6) —
+// cyclotomic squarings, valid only inside the cyclotomic subgroup
+static void cyc_pow_absx(F12& r, const F12& base) {
+  F12 acc = base;  // leading bit
+  for (int b = 62; b >= 0; b--) {
+    cyc_sq(acc, acc);
+    if ((BLS_X_ABS >> b) & 1) f12_mul(acc, acc, base);
+  }
+  r = acc;
+}
+
+// h^(x-1) for the NEGATIVE parameter x = -|x|: h^(-(|x|+1)) =
+// conj(h^|x| * h)  (conjugation is inversion in the cyclotomic subgroup)
+static void cyc_pow_xm1(F12& r, const F12& h) {
+  F12 hx;
+  cyc_pow_absx(hx, h);
+  f12_mul(hx, hx, h);
+  f12_conj(r, hx);
+}
+
+static int fe_initialized = 0;
+
+static void final_exp_init() {
+  // runs once, under the loader's lock via bls_selftest, before any
+  // concurrent verify can reach here
+  if (fe_initialized) return;
+  uint8_t kbytes[95];
+  F2 xi = {FP_ONE, FP_ONE};
+  F2 gamma;
+  int klen = ((int)strlen(K_P2_HEX) + 1) / 2;
+  hex_to_bytes(kbytes, K_P2_HEX, klen);
+  f2_pow_be(gamma, xi, kbytes, klen);
+  GAMMA_P2[0] = F2_ONE_;
+  for (int m = 1; m < 6; m++) f2_mul(GAMMA_P2[m], GAMMA_P2[m - 1], gamma);
+  klen = ((int)strlen(K_P1_HEX) + 1) / 2;
+  hex_to_bytes(kbytes, K_P1_HEX, klen);
+  f2_pow_be(gamma, xi, kbytes, klen);
+  GAMMA_P1[0] = F2_ONE_;
+  for (int m = 1; m < 6; m++) f2_mul(GAMMA_P1[m], GAMMA_P1[m - 1], gamma);
+  fe_initialized = 1;
+}
+
+// Test f^((p^12-1)/r) == 1.  Easy part g = f^((p^6-1)(p^2+1)) lands in
+// the cyclotomic subgroup; for the hard part we use the x-based chain on
+// the exponent multiple 3*(p^4-p^2+1)/r = (x-1)^2 (x+p) (x^2+p^2-1) + 3
+// (verified exactly; the factor 3 is coprime to r, and the tested value
+// lies in mu_r, so "raised to 3e equals one" iff "raised to e equals
+// one").  Cost: ~4 pow-by-|x| = ~256 cyclotomic squarings + ~30 muls,
+// vs ~1300 squarings for a generic binary pow of the 1268-bit exponent.
+static bool final_exp_is_one(const F12& f) {
+  final_exp_init();
+  F12 fi, c, g, gp, h;
+  f12_inv(fi, f);
+  f12_conj(c, f);
+  f12_mul(g, c, fi);   // f^(p^6-1): unitary
+  frob_p2(gp, g);
+  f12_mul(h, gp, g);   // ^(p^2+1): cyclotomic
+  // m2 = h^((x-1)^2)
+  F12 m1, m2, m3, m4, t;
+  cyc_pow_xm1(m1, h);
+  cyc_pow_xm1(m2, m1);
+  // m3 = m2^(x+p) = conj(m2^|x|) * frob_p1(m2)
+  cyc_pow_absx(t, m2);
+  f12_conj(t, t);
+  frob_p1(m3, m2);
+  f12_mul(m3, m3, t);
+  // m4 = m3^(x^2+p^2-1) = m3^(|x|^2) * frob_p2(m3) * conj(m3)
+  cyc_pow_absx(t, m3);
+  cyc_pow_absx(t, t);
+  frob_p2(m4, m3);
+  f12_mul(m4, m4, t);
+  f12_conj(t, m3);
+  f12_mul(m4, m4, t);
+  // out = m4 * h^3  must be ONE
+  cyc_sq(t, h);
+  f12_mul(t, t, h);
+  f12_mul(m4, m4, t);
+  return f12_eq(m4, F12_ONE_);
+}
+
+// e(a1, a2) == e(b1, b2) via e(a1, a2) * e(-b1, b2) == 1
+static bool pairings_equal(const Pt<Fp>& a1, const Pt<F2>& a2,
+                           const Pt<Fp>& b1, const Pt<F2>& b2) {
+  if (a1.inf || a2.inf) return b1.inf || b2.inf;
+  if (b1.inf || b2.inf) return false;
+  F12 fa, fb, prod;
+  miller(fa, a1, a2);
+  miller(fb, pt_neg(b1), b2);
+  f12_mul(prod, fa, fb);
+  return final_exp_is_one(prod);
+}
+
+// ---------------------------------------------------------------------------
+// (De)serialization + subgroup checks (mirroring bls.py)
+// ---------------------------------------------------------------------------
+
+static bool g1_from_bytes(Pt<Fp>& r, const uint8_t* raw) {
+  bool all_zero = true;
+  for (int i = 0; i < 96; i++)
+    if (raw[i]) { all_zero = false; break; }
+  if (all_zero) return false;  // infinity encoding rejected
+  if (!fp_from_be(r.x, raw) || !fp_from_be(r.y, raw + 48)) return false;
+  r.inf = false;
+  return on_curve(r, G1_B);
+}
+
+static bool g2_from_bytes(Pt<F2>& r, const uint8_t* raw) {
+  bool all_zero = true;
+  for (int i = 0; i < 192; i++)
+    if (raw[i]) { all_zero = false; break; }
+  if (all_zero) return false;
+  if (!fp_from_be(r.x.a, raw) || !fp_from_be(r.x.b, raw + 48) ||
+      !fp_from_be(r.y.a, raw + 96) || !fp_from_be(r.y.b, raw + 144))
+    return false;
+  r.inf = false;
+  return on_curve(r, G2_B);
+}
+
+template <class F>
+static bool subgroup_check(const Pt<F>& p) {
+  // p * (r-1) == -p, with a mid-ladder infinity meaning NOT in subgroup
+  bool fail = false;
+  Pt<F> m = pt_mul(p, R_MINUS1_BE, 32, &fail);
+  if (fail) return false;
+  Pt<F> np = pt_neg(p);
+  if (m.inf || np.inf) return m.inf == np.inf;
+  return el_eq(m.x, np.x) && el_eq(m.y, np.y);
+}
+
+// ---------------------------------------------------------------------------
+// Exported API (ctypes)
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// 1 = valid, 0 = invalid
+int bls_verify_one(const uint8_t* pk192, const uint8_t* msg, int64_t msg_len,
+                   const uint8_t* sig96, const uint8_t* dst, int64_t dst_len,
+                   int check_pk_subgroup) {
+  bls_init();
+  Pt<F2> pk;
+  Pt<Fp> s;
+  if (!g2_from_bytes(pk, pk192)) return 0;
+  if (!g1_from_bytes(s, sig96)) return 0;
+  if (!subgroup_check(s)) return 0;
+  if (check_pk_subgroup && !subgroup_check(pk)) return 0;
+  Pt<Fp> h = hash_to_g1(msg, (size_t)msg_len, dst, (size_t)dst_len);
+  return pairings_equal(s, G2_GEN_, h, pk) ? 1 : 0;
+}
+
+// pks: n concatenated 192-byte pubkeys.  1 = valid, 0 = invalid.
+int bls_verify_aggregate(const uint8_t* pks, int64_t n, const uint8_t* msg,
+                         int64_t msg_len, const uint8_t* sig96,
+                         const uint8_t* dst, int64_t dst_len) {
+  bls_init();
+  if (n <= 0) return 0;
+  Pt<Fp> s;
+  if (!g1_from_bytes(s, sig96)) return 0;
+  if (!subgroup_check(s)) return 0;
+  Pt<F2> agg = {F2_ZERO_, F2_ZERO_, true};
+  for (int64_t i = 0; i < n; i++) {
+    Pt<F2> pk;
+    if (!g2_from_bytes(pk, pks + i * 192)) return 0;
+    agg = pt_add(agg, pk);
+  }
+  Pt<Fp> h = hash_to_g1(msg, (size_t)msg_len, dst, (size_t)dst_len);
+  return pairings_equal(s, G2_GEN_, h, agg) ? 1 : 0;
+}
+
+// QC-plane fast path: random-linear-combination batch verify of k
+// aggregate signatures sharing ONE signer set.  pks: npk concatenated
+// 192-byte pubkeys (the shared signer set).  msgs/offs: k concatenated
+// payloads with k+1 offsets.  sigs96: k x 96-byte aggregate signatures.
+// rands32: k x 32-byte big-endian RLC coefficients (secret, nonzero —
+// soundness is 2^-bits per check).  Verifies
+//     e(sum r_i*sig_i, G2) == e(sum r_i*H(m_i), agg_pk)
+// with TWO Miller loops total instead of 2k.  1 = batch holds, 0 = batch
+// fails (caller bisects; structural rejects also report 0, so a bad
+// input degrades to the per-cert path, never to a false accept).
+int bls_verify_batch_rlc(const uint8_t* pks, int64_t npk,
+                         const uint8_t* msgs, const int64_t* offs, int64_t k,
+                         const uint8_t* sigs96, const uint8_t* rands32,
+                         const uint8_t* dst, int64_t dst_len) {
+  bls_init();
+  if (npk <= 0 || k <= 0) return 0;
+  Pt<F2> agg = {F2_ZERO_, F2_ZERO_, true};
+  for (int64_t i = 0; i < npk; i++) {
+    Pt<F2> pk;
+    if (!g2_from_bytes(pk, pks + i * 192)) return 0;
+    agg = pt_add(agg, pk);
+  }
+  Pt<Fp> s_acc = {FP_ZERO, FP_ZERO, true};
+  Pt<Fp> m_acc = {FP_ZERO, FP_ZERO, true};
+  for (int64_t i = 0; i < k; i++) {
+    Pt<Fp> s;
+    if (!g1_from_bytes(s, sigs96 + i * 96)) return 0;
+    if (!subgroup_check(s)) return 0;
+    bool fail = false;
+    Pt<Fp> rs = pt_mul(s, rands32 + i * 32, 32, &fail);
+    if (fail) return 0;
+    s_acc = pt_add(s_acc, rs);
+    Pt<Fp> h = hash_to_g1(msgs + offs[i], (size_t)(offs[i + 1] - offs[i]),
+                          dst, (size_t)dst_len);
+    Pt<Fp> rh = pt_mul(h, rands32 + i * 32, 32, &fail);
+    if (fail) return 0;
+    m_acc = pt_add(m_acc, rh);
+  }
+  if (s_acc.inf || m_acc.inf || agg.inf) return 0;  // degenerate: go per-cert
+  return pairings_equal(s_acc, G2_GEN_, m_acc, agg) ? 1 : 0;
+}
+
+// -- debug hooks (differential testing vs crypto/bls.py) -------------------
+
+static void fp_to_be(uint8_t* be, const Fp& a) {
+  u64 raw[6];
+  fp_to_limbs(raw, a);
+  for (int i = 0; i < 6; i++)
+    for (int j = 0; j < 8; j++)
+      be[(5 - i) * 8 + j] = (uint8_t)(raw[i] >> (8 * (7 - j)));
+}
+
+int dbg_fp_mul(const uint8_t* a, const uint8_t* b, uint8_t* out) {
+  bls_init();
+  Fp fa, fb, r;
+  if (!fp_from_be(fa, a) || !fp_from_be(fb, b)) return 0;
+  fp_mul(r, fa, fb);
+  fp_to_be(out, r);
+  return 1;
+}
+
+int dbg_fp_inv(const uint8_t* a, uint8_t* out) {
+  bls_init();
+  Fp fa, r;
+  if (!fp_from_be(fa, a)) return 0;
+  fp_inv(r, fa);
+  fp_to_be(out, r);
+  return 1;
+}
+
+int dbg_hash_g1(const uint8_t* msg, int64_t msg_len, const uint8_t* dst,
+                int64_t dst_len, uint8_t* out96) {
+  bls_init();
+  Pt<Fp> h = hash_to_g1(msg, (size_t)msg_len, dst, (size_t)dst_len);
+  if (h.inf) return 0;
+  fp_to_be(out96, h.x);
+  fp_to_be(out96 + 48, h.y);
+  return 1;
+}
+
+int dbg_g1_mul(const uint8_t* pt96, const uint8_t* scalar_be, int64_t slen,
+               uint8_t* out96) {
+  bls_init();
+  Pt<Fp> p;
+  if (!g1_from_bytes(p, pt96)) return 0;
+  bool fail = false;
+  Pt<Fp> r = pt_mul(p, scalar_be, (int)slen, &fail);
+  if (fail || r.inf) return 0;
+  fp_to_be(out96, r.x);
+  fp_to_be(out96 + 48, r.y);
+  return 1;
+}
+
+int dbg_checks(const uint8_t* pk192) {
+  bls_init();
+  Pt<F2> pk;
+  int r = 0;
+  if (g2_from_bytes(pk, pk192)) r |= 1;
+  else return 0;
+  if (subgroup_check(pk)) r |= 2;
+  if (subgroup_check(G2_GEN_)) r |= 4;
+  if (on_curve(G2_GEN_, G2_B)) r |= 8;
+  return r;
+}
+
+int dbg_miller_one(const uint8_t* p96, const uint8_t* q192) {
+  // returns 1 if final_exp(miller(p,q) * miller(-p,q)) == 1 (must hold)
+  bls_init();
+  Pt<Fp> p;
+  Pt<F2> q;
+  if (!g1_from_bytes(p, p96) || !g2_from_bytes(q, q192)) return -1;
+  return pairings_equal(p, q, p, q) ? 1 : 0;
+}
+
+// sk (32-byte big-endian scalar, already reduced mod r) signs msg under
+// dst: sig = hash_to_g1(msg, dst)^sk, 96-byte uncompressed out.
+// 1 = ok, 0 = degenerate (zero scalar / infinity result).
+int bls_sign(const uint8_t* sk_be, const uint8_t* msg, int64_t msg_len,
+             const uint8_t* dst, int64_t dst_len, uint8_t* out96) {
+  bls_init();
+  Pt<Fp> h = hash_to_g1(msg, (size_t)msg_len, dst, (size_t)dst_len);
+  bool fail = false;
+  Pt<Fp> s = pt_mul(h, sk_be, 32, &fail);
+  if (fail || s.inf) return 0;
+  fp_to_be(out96, s.x);
+  fp_to_be(out96 + 48, s.y);
+  return 1;
+}
+
+// pubkey = G2_gen^sk, 192-byte uncompressed out. 1 = ok, 0 = degenerate.
+int bls_pubkey(const uint8_t* sk_be, uint8_t* out192) {
+  bls_init();
+  bool fail = false;
+  Pt<F2> pk = pt_mul(G2_GEN_, sk_be, 32, &fail);
+  if (fail || pk.inf) return 0;
+  fp_to_be(out192, pk.x.a);
+  fp_to_be(out192 + 48, pk.x.b);
+  fp_to_be(out192 + 96, pk.y.a);
+  fp_to_be(out192 + 144, pk.y.b);
+  return 1;
+}
+
+// self-test hook: e(G1gen, G2gen)^r == 1 and bilinearity smoke
+int bls_selftest(void) {
+  bls_init();
+  // hash two messages, verify e(H, G2)*e(-H, G2) == 1
+  const uint8_t m1[] = "native selftest";
+  const uint8_t d1[] = "DSTSELFTEST";
+  Pt<Fp> h = hash_to_g1(m1, sizeof m1 - 1, d1, sizeof d1 - 1);
+  if (h.inf) return 0;
+  if (!on_curve(h, G1_B)) return 0;
+  if (!subgroup_check(h)) return 0;
+  if (!subgroup_check(G2_GEN_)) return 0;
+  // the Granger-Scott square must agree with the generic square on a
+  // real cyclotomic-subgroup element (guards the slot mapping: a wrong
+  // permutation fails HERE and the loader falls back to Python)
+  final_exp_init();
+  F12 f, fi, cj, g, gp, cy, sq;
+  miller(f, h, G2_GEN_);
+  f12_inv(fi, f);
+  f12_conj(cj, f);
+  f12_mul(g, cj, fi);
+  frob_p2(gp, g);
+  f12_mul(g, gp, g);
+  cyc_sq(cy, g);
+  f12_sq(sq, g);
+  if (!f12_eq(cy, sq)) return 0;
+  return pairings_equal(h, G2_GEN_, h, G2_GEN_) ? 1 : 0;
+}
+}

@@ -1,0 +1,472 @@
+"""Opt-in runtime sanitizers: the dynamic half of pbftlint.
+
+Two sanitizers, enabled via ``PBFT_SANITIZE`` (comma list, or ``all``):
+
+- ``loop`` — **event-loop blocking sanitizer.** A daemon watcher posts a
+  heartbeat callback onto every watched loop; when the echo stalls past
+  the threshold (``PBFT_SANITIZE_LOOP_MS``, default 150) it samples the
+  loop thread's live stack via ``sys._current_frames()`` and records a
+  violation attributed to the innermost product frame. This is the
+  dynamic backstop for pbftlint's PBL001: the static call graph cannot
+  see through dynamic dispatch, ctypes, or C extensions — a stalled
+  heartbeat can't be fooled by any of them. (``sys.monitoring`` would
+  give exact per-callback attribution but is 3.12+; this runtime is
+  3.10, and the sampling design additionally catches stalls *between*
+  callbacks — e.g. a GIL-hogging native call — that callback timing
+  misses. See docs/STATIC_ANALYSIS.md.)
+
+- ``locks`` — **lock-discipline sanitizer.** The cross-thread surfaces
+  (VerifyService, QcVerifyLane, SpanRecorder, FlightRecorder) wrap
+  their locks in :func:`wrap_lock`, which enforces the documented
+  ranked acquisition order (:data:`LOCK_RANKS` is the single source;
+  the docs table is asserted against it in tests), leaf annotations
+  (nothing may be acquired while a leaf lock is held), and group
+  exclusion (the SpanRecorder's ring lock and sink lock must NEVER be
+  held together — the "sink I/O off the recorder lock" contract).
+  :func:`bind_owner`/:func:`check_owner` assert owning-thread
+  annotations on worker-confined and loop-confined methods.
+
+Both sanitizers RECORD violations instead of raising: a sanitizer that
+raises into consensus would itself violate the telemetry contract. The
+pytest hook in tests/conftest.py drains :func:`take_violations` after
+each test and fails the test that caused them. Zero overhead when
+disabled: :func:`wrap_lock` returns the raw lock object and the owner
+checks are no-ops.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import os
+import sys
+import threading
+import time
+import traceback
+from typing import Any, Dict, List, Optional, Tuple
+
+__all__ = [
+    "enabled",
+    "install",
+    "take_violations",
+    "violations",
+    "format_violations",
+    "wrap_lock",
+    "bind_owner",
+    "check_owner",
+    "watch_loop",
+    "LOCK_RANKS",
+]
+
+
+def enabled(kind: str) -> bool:
+    """Is sanitizer ``kind`` ("loop"/"locks") requested via env? Read
+    per call so tests can monkeypatch PBFT_SANITIZE."""
+    raw = os.environ.get("PBFT_SANITIZE", "")
+    modes = {m.strip() for m in raw.split(",") if m.strip()}
+    return "all" in modes or kind in modes
+
+
+# ---------------------------------------------------------------------------
+# violation store (process-wide, bounded; never raises into the caller)
+# ---------------------------------------------------------------------------
+
+_MAX_VIOLATIONS = 256
+_viol_lock = threading.Lock()
+_violations: List[Dict[str, Any]] = []
+
+
+def _record(kind: str, **doc: Any) -> None:
+    doc = {"kind": kind, "t_mono": round(time.monotonic(), 4), **doc}
+    with _viol_lock:
+        if len(_violations) < _MAX_VIOLATIONS:
+            _violations.append(doc)
+
+
+def violations(kind: Optional[str] = None) -> List[Dict[str, Any]]:
+    with _viol_lock:
+        out = list(_violations)
+    if kind is not None:
+        out = [v for v in out if v["kind"] == kind]
+    return out
+
+
+def take_violations() -> List[Dict[str, Any]]:
+    """Drain the store (per-test reset + check)."""
+    with _viol_lock:
+        out = list(_violations)
+        _violations.clear()
+    return out
+
+
+def format_violations(viols: List[Dict[str, Any]]) -> str:
+    lines = [f"{len(viols)} sanitizer violation(s):"]
+    for v in viols:
+        head = f"  [{v['kind']}] " + (v.get("message") or "")
+        lines.append(head)
+        for fr in v.get("stack", [])[-8:]:
+            lines.append(f"      {fr}")
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# loop-blocking sanitizer
+# ---------------------------------------------------------------------------
+
+DEFAULT_LOOP_MS = 150.0
+
+# stdlib frames that mean "the loop thread is idle/parked, not blocked
+# in product code" — a sampled stack whose innermost frame lives here is
+# not attributable and is dropped rather than guessed at
+_IDLE_FUNCS = {
+    "select", "poll", "epoll", "kqueue", "_run_once", "run_forever",
+    "_read_from_self", "_write_to_self", "_process_events",
+}
+
+
+class _LoopWatch:
+    """One watcher thread per watched loop. The loop echoes heartbeats;
+    a stalled echo past ``threshold_s`` samples the loop thread's stack
+    and records ONE violation per stall episode (debounced until the
+    heartbeat recovers)."""
+
+    def __init__(self, loop: asyncio.AbstractEventLoop, threshold_s: float):
+        self.loop = loop
+        self.threshold_s = threshold_s
+        self._last_beat = time.monotonic()
+        self._loop_tid: Optional[int] = None
+        self._in_stall = False
+        self._thread = threading.Thread(
+            target=self._run, name="pbft-sanitize-loop", daemon=True
+        )
+        self._thread.start()
+
+    def _beat(self) -> None:
+        self._loop_tid = threading.get_ident()
+        self._last_beat = time.monotonic()
+
+    def _run(self) -> None:
+        try:
+            self._watch()
+        finally:
+            # the loop is closed: release its id so a LATER loop object
+            # reusing the freed address gets its own watcher instead of
+            # being silently unwatched (id() reuse after gc)
+            with _watch_lock:
+                _watched.discard(id(self.loop))
+
+    def _watch(self) -> None:
+        period = max(0.005, self.threshold_s / 4.0)
+        while True:
+            if self.loop.is_closed():
+                return
+            if not self.loop.is_running():
+                # between run_until_complete calls (tests) the loop is
+                # parked: a missing echo is not a block
+                self._last_beat = time.monotonic()
+                self._in_stall = False
+                time.sleep(period)
+                continue
+            try:
+                self.loop.call_soon_threadsafe(self._beat)
+            except RuntimeError:  # loop closed between check and call
+                return
+            time.sleep(period)
+            gap = time.monotonic() - self._last_beat
+            if gap <= self.threshold_s or not self.loop.is_running():
+                self._in_stall = False
+                continue
+            if self._in_stall:
+                continue  # one violation per episode
+            stack = self._sample()
+            if stack is None:
+                continue  # idle/unattributable — not a block
+            self._in_stall = True
+            _record(
+                "loop",
+                message=(
+                    f"event loop stalled {gap * 1e3:.0f} ms "
+                    f"(threshold {self.threshold_s * 1e3:.0f} ms) — "
+                    f"blocked in: {stack[-1].strip()}"
+                ),
+                stall_ms=round(gap * 1e3, 1),
+                stack=stack,
+            )
+
+    def _sample(self) -> Optional[List[str]]:
+        tid = self._loop_tid
+        if tid is None:
+            # no beat ever echoed (the loop blocked on its very first
+            # callback): fall back to asyncio's own record of the thread
+            # running the loop (CPython BaseEventLoop._thread_id)
+            tid = getattr(self.loop, "_thread_id", None)
+        if tid is None:
+            return None
+        frame = sys._current_frames().get(tid)
+        if frame is None:
+            return None
+        summary = traceback.extract_stack(frame)
+        if not summary:
+            return None
+        if summary[-1].name in _IDLE_FUNCS:
+            return None  # parked in the selector / loop machinery
+        here = os.path.dirname(os.path.abspath(__file__))
+        out = []
+        for fr in summary:
+            if fr.filename == os.path.join(here, "sanitize.py"):
+                continue
+            out.append(
+                f"{fr.filename}:{fr.lineno} in {fr.name}: "
+                f"{(fr.line or '').strip()}"
+            )
+        return out or None
+
+
+_watched: "set[int]" = set()
+_watch_lock = threading.Lock()
+
+
+def watch_loop(
+    loop: asyncio.AbstractEventLoop, threshold_s: Optional[float] = None
+) -> Optional[_LoopWatch]:
+    """Attach the blocking watcher to ``loop`` (idempotent). Explicit
+    call = explicit opt-in: works regardless of PBFT_SANITIZE (tests)."""
+    with _watch_lock:
+        if id(loop) in _watched:
+            return None
+        _watched.add(id(loop))
+    if threshold_s is None:
+        threshold_s = (
+            float(os.environ.get("PBFT_SANITIZE_LOOP_MS", DEFAULT_LOOP_MS))
+            / 1e3
+        )
+    return _LoopWatch(loop, threshold_s)
+
+
+_installed = False
+
+
+def install() -> None:
+    """Auto-instrument every event loop created from now on (the
+    ``PBFT_SANITIZE=loop`` entry point; tests/conftest.py calls this
+    when the env asks). Wraps the current policy's ``new_event_loop``
+    so ``asyncio.run()`` in any test or tool gets a watched loop."""
+    global _installed
+    if _installed or not enabled("loop"):
+        return
+    _installed = True
+    pol = asyncio.get_event_loop_policy()
+    orig = pol.new_event_loop
+
+    def _watched_new_event_loop():
+        loop = orig()
+        watch_loop(loop)
+        return loop
+
+    pol.new_event_loop = _watched_new_event_loop  # type: ignore[method-assign]
+
+
+# ---------------------------------------------------------------------------
+# lock-discipline sanitizer
+# ---------------------------------------------------------------------------
+
+# THE documented lock order (docs/STATIC_ANALYSIS.md renders this table;
+# a test asserts the docs and this dict agree). Rules enforced on every
+# blocking acquire:
+#   * rank:  a thread may only acquire a lock whose rank is STRICTLY
+#            greater than every rank it already holds;
+#   * leaf:  while a leaf lock is held, acquiring ANYTHING is a
+#            violation (leaf locks guard pure in-memory state and must
+#            never nest outward);
+#   * group: two locks sharing a group must never be held together even
+#            in rank order (SpanRecorder: sink file I/O must not happen
+#            under the ring lock).
+# Non-blocking acquires (trylocks, Condition's ownership probe) are
+# exempt: they cannot deadlock and Condition._is_owned probes the lock
+# the thread already holds.
+LOCK_RANKS: Dict[str, Dict[str, Any]] = {
+    # NOT leaf: lane_snapshot() legally acquires qc.lane.cond inside it
+    "qc.lane_registry": {"rank": 10},
+    "verify_service.cond": {"rank": 20},
+    "verify_service.done_cond": {"rank": 25},  # nests inside .cond
+    "qc.lane.cond": {"rank": 30},
+    "spans.recorder": {"rank": 40, "group": "spans"},
+    "spans.sink": {"rank": 45, "group": "spans"},
+    "qc.cache": {"rank": 90, "leaf": True},
+}
+
+_tls = threading.local()
+
+
+def _held() -> List[Tuple[str, int, Optional[str], bool, int]]:
+    h = getattr(_tls, "held", None)
+    if h is None:
+        h = _tls.held = []
+    return h
+
+
+class _RankedLock:
+    """Discipline-checking proxy over a ``threading.Lock``. Supports the
+    full lock protocol (``acquire``/``release``/context manager) so it
+    drops into ``threading.Condition(lock=...)`` unchanged."""
+
+    __slots__ = ("_lock", "name", "rank", "leaf", "group")
+
+    def __init__(self, lock: Any, name: str):
+        spec = LOCK_RANKS[name]
+        self._lock = lock
+        self.name = name
+        self.rank = spec["rank"]
+        self.leaf = bool(spec.get("leaf"))
+        self.group = spec.get("group")
+
+    def _check(self) -> None:
+        held = _held()
+        if any(h[4] == id(self) for h in held):
+            return  # re-entrant acquire of the same lock object
+        for name, rank, group, leaf, _lid in held:
+            msg = None
+            if leaf:
+                msg = (
+                    f"acquired {self.name!r} while holding LEAF lock "
+                    f"{name!r} — leaf locks must never nest outward"
+                )
+            elif self.group is not None and group == self.group:
+                msg = (
+                    f"{self.name!r} and {name!r} (group {group!r}) held "
+                    "together — the group contract forbids nesting them "
+                    "in either order"
+                )
+            elif rank >= self.rank:
+                msg = (
+                    f"lock order violation: acquired {self.name!r} "
+                    f"(rank {self.rank}) while holding {name!r} "
+                    f"(rank {rank}) — documented order is by "
+                    "ascending rank"
+                )
+            if msg:
+                _record(
+                    "locks",
+                    message=msg,
+                    thread=threading.current_thread().name,
+                    stack=traceback.format_stack(limit=8),
+                )
+                return  # one violation per acquire is enough signal
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        if blocking:
+            self._check()
+        got = self._lock.acquire(blocking, timeout)
+        if got:
+            _held().append(
+                (self.name, self.rank, self.group, self.leaf, id(self))
+            )
+        return got
+
+    def release(self) -> None:
+        held = _held()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i][4] == id(self):
+                del held[i]
+                break
+        self._lock.release()
+
+    def __enter__(self) -> bool:
+        return self.acquire()
+
+    def __exit__(self, *exc: Any) -> None:
+        self.release()
+
+    def locked(self) -> bool:
+        return self._lock.locked()
+
+
+def wrap_lock(lock: Any, name: str, *, force: bool = False) -> Any:
+    """Instrument ``lock`` under the documented name, or return it
+    untouched when the locks sanitizer is off (zero overhead on the
+    default path). ``name`` must be in :data:`LOCK_RANKS` — an unknown
+    name is a programming error and raises immediately (at construction
+    time, never mid-consensus). ``force`` opts in regardless of env
+    (tests)."""
+    if name not in LOCK_RANKS:
+        raise KeyError(f"undocumented lock {name!r}: add it to LOCK_RANKS")
+    if not (force or enabled("locks")):
+        return lock
+    return _RankedLock(lock, name)
+
+
+# -- owning-thread annotations ----------------------------------------------
+
+_owner_lock = threading.Lock()
+_owners: Dict[Any, Tuple[int, str]] = {}
+# owner keys embed id(obj): without release on teardown a recycled
+# address would inherit a DEAD object's binding and record a spurious
+# rebind (the same id()-reuse hazard the loop watch set discards on
+# close). Owning objects call release_owner() when their confined
+# lifetime ends; the cap bounds a long-lived armed process where some
+# surface lacks a teardown hook (eviction only ever causes a fresh
+# re-bind — a missed violation, never a false one).
+_MAX_OWNERS = 4096
+
+
+def bind_owner(key: Any, label: str) -> None:
+    """Declare the CURRENT thread the owner of ``key`` (a worker binding
+    its confined surface). Rebinding from a different thread is itself a
+    violation — a surface must not silently migrate owners."""
+    if not enabled("locks"):
+        return
+    me = threading.get_ident()
+    with _owner_lock:
+        prev = _owners.get(key)
+        if prev is not None and prev[0] != me:
+            _record(
+                "locks",
+                message=(
+                    f"owner rebind: {label} bound to thread "
+                    f"{threading.current_thread().name!r} but was owned "
+                    f"by {prev[1]!r}"
+                ),
+                stack=traceback.format_stack(limit=8),
+            )
+        if key not in _owners and len(_owners) >= _MAX_OWNERS:
+            _owners.pop(next(iter(_owners)))
+        _owners[key] = (me, threading.current_thread().name)
+
+
+def release_owner(key: Any) -> None:
+    """Forget ``key``'s binding — called by the owning object's teardown
+    so a later object at a recycled id() binds fresh. Safe from any
+    thread and when the key was never bound (armed or not)."""
+    with _owner_lock:
+        _owners.pop(key, None)
+
+
+def check_owner(key: Any, label: str) -> None:
+    """Assert the current thread owns ``key``; first call binds (the
+    loop-confined FlightRecorder pattern: whoever touches it first is
+    the owner, anyone else after that is a cross-thread bug)."""
+    if not enabled("locks"):
+        return
+    me = threading.get_ident()
+    with _owner_lock:
+        prev = _owners.get(key)
+        if prev is None:
+            if len(_owners) >= _MAX_OWNERS:
+                _owners.pop(next(iter(_owners)))
+            _owners[key] = (me, threading.current_thread().name)
+            return
+    if prev[0] != me:
+        _record(
+            "locks",
+            message=(
+                f"owning-thread violation: {label} touched from thread "
+                f"{threading.current_thread().name!r} but is owned by "
+                f"{prev[1]!r}"
+            ),
+            stack=traceback.format_stack(limit=8),
+        )
+
+
+def reset_owners() -> None:
+    """Tests: forget all owner bindings (fresh objects, fresh owners)."""
+    with _owner_lock:
+        _owners.clear()

@@ -1,0 +1,339 @@
+"""Transport interface + the shared wire-accounting layer.
+
+Every transport flavor (local, tcp, grpc — and faults.ShapedTransport
+composing over any of them) exposes the same two observability surfaces:
+
+- ``metrics``: the flat frame-counter dict (``COUNTER_SCHEMA``). One
+  schema for all transports, zero-valued where a counter is
+  inapplicable, so pbft_top and the telemetry transport block read every
+  deployment flavor identically.
+- ``wire``: a ``WireAccounting`` — per-link, per-message-kind message
+  AND byte accounting. Frame counters alone could
+  not see the O(n²) broadcast storm: at n=64 a commit costs thousands
+  of prepare/commit frames whose bytes dwarf the request payload, and
+  nothing attributed wire volume to protocol phases. Accounting is
+  conservation-complete: every frame a node hands to its transport is
+  accounted exactly once — as ``sent`` on the link it left on, or in a
+  named ``lost`` bucket (shaped loss, partition, outbox overflow,
+  mid-write failure, recv-buffer overflow) — so per-kind bytes summed
+  over senders' links reconcile with receivers' observed totals plus
+  losses (asserted in tests/test_wire_accounting.py).
+
+Accounting entry points never raise (the transport hot path is
+loop-resident; a telemetry defect must drop a count, not a frame) and
+take no lock: every caller is confined to its node's event loop.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Protocol, Sequence
+
+#: One counter schema for every transport. tcp owns the richest set;
+#: grpc/local report zeros for the counters their implementation cannot
+#: hit (a LocalNetwork has no reconnects). Single-sourced here so the
+#: per-transport dicts can never drift apart (pbftlint PBL003).
+COUNTER_SCHEMA = (
+    "sent",
+    "recv",
+    "dropped_recv",
+    "dropped_outbox",
+    "reconnects",
+    "frames_dropped",
+    "frames_requeued",
+)
+
+
+def base_metrics() -> Dict[str, int]:
+    """Fresh zeroed counter dict in the shared schema."""
+    return {k: 0 for k in COUNTER_SCHEMA}
+
+
+# ---------------------------------------------------------------------------
+# wire-kind classification (no json.loads on the transport hot path)
+# ---------------------------------------------------------------------------
+
+UNKNOWN_KIND = "unknown"
+
+
+def _skip_string(raw: bytes, i: int) -> int:
+    """``raw[i]`` is an opening quote; index just past the closing one.
+    Backslash-escape aware (an escaped quote inside an op string must
+    not terminate the scan)."""
+    j = raw.index(b'"', i + 1)
+    while True:
+        k = j - 1
+        while raw[k] == 0x5C:  # backslash run before the candidate quote
+            k -= 1
+        if (j - k) % 2 == 1:  # even number of backslashes: a real close
+            return j + 1
+        j = raw.index(b'"', j + 1)
+
+
+def _skip_value(raw: bytes, i: int) -> int:
+    """Index just past one JSON value starting at ``raw[i]``. Containers
+    are skipped with a string-aware depth count; the bulk of large
+    values (blocks, certificate pools) is string content skipped at C
+    speed via ``bytes.index``."""
+    c = raw[i]
+    if c == 0x22:  # '"'
+        return _skip_string(raw, i)
+    if c in (0x7B, 0x5B):  # '{' '['
+        depth = 1
+        i += 1
+        while depth:
+            c = raw[i]
+            if c == 0x22:
+                i = _skip_string(raw, i)
+                continue
+            if c in (0x7B, 0x5B):
+                depth += 1
+            elif c in (0x7D, 0x5D):
+                depth -= 1
+            i += 1
+        return i
+    while raw[i] not in (0x2C, 0x7D, 0x5D):  # number / true / false / null
+        i += 1
+    return i
+
+
+def wire_kind(raw: bytes) -> str:
+    """Top-level ``kind`` of one canonical-JSON wire frame.
+
+    NOT a substring scan and NOT a ``json.loads``: pre-prepares and
+    NEW-VIEWs embed whole client requests, so their bytes contain
+    ``"kind":"request"`` long before the top-level kind — and a decode
+    per frame purely for accounting would double the transport's loop
+    cost. Canonical JSON sorts keys at every level, so this walks the
+    TOP-LEVEL keys in order, skipping values, until ``kind`` (or a key
+    sorting after it, which proves absence). Returns ``"unknown"`` on
+    anything malformed — classification never raises and never drops a
+    frame; an unknown kind is itself a counted signal."""
+    try:
+        if not raw.startswith(b'{"'):
+            return UNKNOWN_KIND
+        i = 1
+        n = len(raw)
+        while i < n:
+            j = _skip_string(raw, i)
+            key = raw[i + 1: j - 1]
+            if raw[j: j + 1] != b":":
+                return UNKNOWN_KIND
+            i = j + 1
+            if key == b"kind":
+                if raw[i: i + 1] != b'"':
+                    return UNKNOWN_KIND
+                j = _skip_string(raw, i)
+                return raw[i + 1: j - 1].decode("ascii", "replace")
+            if key > b"kind":
+                return UNKNOWN_KIND  # sorted keys: kind cannot follow
+            i = _skip_value(raw, i)
+            if raw[i: i + 1] != b",":
+                return UNKNOWN_KIND  # closed the object without a kind
+            i += 1
+        return UNKNOWN_KIND
+    except Exception:  # noqa: BLE001 — accounting never raises into a send
+        return UNKNOWN_KIND
+
+
+class WireAccounting:
+    """Per-link, per-kind msgs+bytes ledgers for one node's transport.
+
+    Three surfaces, all ``kind -> [msgs, bytes]`` cells:
+
+    - ``sent``:  ``dest -> kind -> [msgs, bytes]`` — frames that reached
+      the wire (tcp: actually written; local: delivered to the network).
+    - ``recv``:  ``kind -> [msgs, bytes]`` — frames accepted off the
+      wire into the recv queue (counted at acceptance, not dequeue, so
+      queue residency never breaks conservation).
+    - ``lost``:  ``bucket -> kind -> [msgs, bytes]`` — frames dropped
+      with attribution (``shaped_lost``, ``partition_dropped``,
+      ``dropped_outbox``, ``frames_dropped``, ``dropped_recv``,
+      ``net_dropped``, ``no_route``). Lost bytes never vanish.
+
+    Single-threaded by construction (each node's transport runs on its
+    own event loop); entry points swallow their own failures — a
+    telemetry bug must cost a count, never a frame.
+    """
+
+    __slots__ = ("node_id", "sent", "recv", "lost", "_memo_raw", "_memo_kind")
+
+    def __init__(self, node_id: str = "") -> None:
+        self.node_id = node_id
+        self.sent: Dict[str, Dict[str, List[int]]] = {}
+        self.recv: Dict[str, List[int]] = {}
+        self.lost: Dict[str, Dict[str, List[int]]] = {}
+        # one-slot identity memo: a broadcast hands the SAME bytes object
+        # to every link's send, so n-1 of n classifications are an `is`
+        # check. Holding the ref pins the id — no stale-id reuse hazard.
+        self._memo_raw: Optional[bytes] = None
+        self._memo_kind: str = UNKNOWN_KIND
+
+    def kind_of(self, raw: bytes) -> str:
+        if raw is self._memo_raw:
+            return self._memo_kind
+        kind = wire_kind(raw)
+        self._memo_raw = raw
+        self._memo_kind = kind
+        return kind
+
+    @staticmethod
+    def _bump(kinds: Dict[str, List[int]], kind: str, size: int) -> None:
+        cell = kinds.get(kind)
+        if cell is None:
+            kinds[kind] = [1, size]
+        else:
+            cell[0] += 1
+            cell[1] += size
+
+    def account_send(self, dest: str, raw: bytes, kind: str = "") -> None:
+        try:
+            kinds = self.sent.get(dest)
+            if kinds is None:
+                kinds = self.sent[dest] = {}
+            self._bump(kinds, kind or self.kind_of(raw), len(raw))
+        except Exception:  # noqa: BLE001 — never raises into the send path
+            pass
+
+    def account_recv(self, raw: bytes, kind: str = "") -> None:
+        try:
+            self._bump(self.recv, kind or self.kind_of(raw), len(raw))
+        except Exception:  # noqa: BLE001 — never raises into the recv path
+            pass
+
+    def account_lost(self, bucket: str, raw: bytes, kind: str = "") -> None:
+        try:
+            kinds = self.lost.get(bucket)
+            if kinds is None:
+                kinds = self.lost[bucket] = {}
+            self._bump(kinds, kind or self.kind_of(raw), len(raw))
+        except Exception:  # noqa: BLE001 — never raises into the drop path
+            pass
+
+    # -- read side ------------------------------------------------------
+
+    def per_kind(self) -> Dict[str, Dict[str, int]]:
+        """kind -> {sent_msgs, sent_bytes, recv_msgs, recv_bytes,
+        lost_msgs, lost_bytes}, merged over links and loss buckets."""
+        out: Dict[str, Dict[str, int]] = {}
+
+        def row(kind: str) -> Dict[str, int]:
+            r = out.get(kind)
+            if r is None:
+                r = out[kind] = {
+                    "sent_msgs": 0, "sent_bytes": 0,
+                    "recv_msgs": 0, "recv_bytes": 0,
+                    "lost_msgs": 0, "lost_bytes": 0,
+                }
+            return r
+
+        for kinds in self.sent.values():
+            for kind, (m, b) in kinds.items():
+                r = row(kind)
+                r["sent_msgs"] += m
+                r["sent_bytes"] += b
+        for kind, (m, b) in self.recv.items():
+            r = row(kind)
+            r["recv_msgs"] += m
+            r["recv_bytes"] += b
+        for kinds in self.lost.values():
+            for kind, (m, b) in kinds.items():
+                r = row(kind)
+                r["lost_msgs"] += m
+                r["lost_bytes"] += b
+        return out
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The telemetry transport-block form: per-kind rollup, per-link
+        totals, per-bucket loss totals, and flat grand totals (pbft_top's
+        NETIO cell reads the flat keys without walking the maps)."""
+        per_kind = self.per_kind()
+        links = {
+            dest: [
+                sum(c[0] for c in kinds.values()),
+                sum(c[1] for c in kinds.values()),
+            ]
+            for dest, kinds in sorted(self.sent.items())
+        }
+        lost = {
+            bucket: [
+                sum(c[0] for c in kinds.values()),
+                sum(c[1] for c in kinds.values()),
+            ]
+            for bucket, kinds in sorted(self.lost.items())
+        }
+        return {
+            "per_kind": per_kind,
+            "links": links,
+            "lost": lost,
+            "sent_msgs": sum(r["sent_msgs"] for r in per_kind.values()),
+            "sent_bytes": sum(r["sent_bytes"] for r in per_kind.values()),
+            "recv_msgs": sum(r["recv_msgs"] for r in per_kind.values()),
+            "recv_bytes": sum(r["recv_bytes"] for r in per_kind.values()),
+            "lost_msgs": sum(r["lost_msgs"] for r in per_kind.values()),
+            "lost_bytes": sum(r["lost_bytes"] for r in per_kind.values()),
+        }
+
+
+def wire_of(transport: Any) -> Optional[WireAccounting]:
+    """The WireAccounting in a transport wrapper chain, if any. Walks
+    ``_inner`` links (ShapedTransport / byzantine wrappers) to the
+    owning socket/local transport — wrappers share the inner ledger so
+    a shaped node reports ONE consistent accounting."""
+    t, seen = transport, 0
+    while t is not None and seen < 8:
+        w = getattr(t, "wire", None)
+        if isinstance(w, WireAccounting):
+            return w
+        t = getattr(t, "_inner", None)
+        seen += 1
+    return None
+
+
+def update_peer_book(
+    transport: Any, addrs: Mapping[str, Sequence[Any]]
+) -> int:
+    """Push ``id -> (host, port)`` entries into every peer book found in
+    a transport wrapper chain (ShapedTransport / byzantine wrappers hold
+    the socket transport behind ``_inner``). Socket transports route by
+    their ``peers`` dict — without this, a reconfiguration-added member
+    is unreachable over tcp/grpc (``send`` silently drops unknown dests)
+    even though the committed config names it. Id-routed transports
+    (local) have no book and ignore the call. Returns entries changed."""
+    t, changed = transport, 0
+    while t is not None:
+        peers = getattr(t, "peers", None)
+        if isinstance(peers, dict):
+            own = getattr(t, "node_id", None)
+            for rid, hp in addrs.items():
+                if rid == own:
+                    continue  # a peer book never routes to itself
+                entry = (str(hp[0]), int(hp[1]))
+                if peers.get(rid) != entry:
+                    peers[rid] = entry
+                    changed += 1
+        t = getattr(t, "_inner", None)
+    return changed
+
+
+class Transport(Protocol):
+    """One node's handle on the network. Sends are fire-and-forget (the
+    reference's semantics: http.Post with the response ignored,
+    node.go:101-129); reliability comes from the protocol layer (quorums,
+    retransmit-on-timeout), not the transport."""
+
+    node_id: str
+
+    async def send(self, dest: str, raw: bytes) -> None:
+        ...
+
+    async def broadcast(self, raw: bytes, dests: Iterable[str]) -> None:
+        """Send to every id in ``dests`` except self."""
+        ...
+
+    async def recv(self) -> bytes:
+        """Next inbound wire message (awaits until one arrives)."""
+        ...
+
+    def recv_nowait(self) -> Optional[bytes]:
+        """Drain one queued message without blocking, or None."""
+        ...
