@@ -36,7 +36,24 @@ per phase:
               latencies from a drive without the profiler, the device's
               idle share from a second drive on a fresh committee, traced
               over its middle half;
-7. the kernels line, and last the device line.
+7. deployment (this slice's main path) — the port's launcher as a
+              subprocess: 16 replica processes (n=16, f=5) with
+              --verifier gpu over TCP, each verifying through its own
+              VerifyService(GpuVerifier) on the card, and one client
+              sending 800 puts, all in flight. Every reply
+              must arrive; every node must make device passes (each one
+              launch of both kernels) with no watchdog failover, no
+              quarantine and no first-time shape after its warm, and all
+              nodes must stop on one executed sequence. The client's
+              line, boot seconds, the card's memory per process, each
+              node's passes, and node r0's device profile (armed with
+              --device-profile) are printed;
+8. bench      — python -m simple_pbft_tpu_torch.bench (no error, on the
+              card) and python -m simple_pbft_tpu_torch.bench_consensus
+              --configs 2 --verifier gpu --seconds 10 (commits, device
+              passes);
+9. the kernels line (launches of the committee and the deployment), and
+   last the device line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result.
@@ -46,12 +63,19 @@ view timer; without it the committee runs with 30 s, as bench_consensus.py
 does for clean runs.
 """
 
+import glob
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 # Hopper: 64 int32 lanes per SM; a 32 x 32 -> 64-bit multiply (IMAD.WIDE)
@@ -545,10 +569,12 @@ def phase_committee(view_timeout):
                                    for i, c in enumerate(com.clients)),
                                  *([tracer] if tracer else []))
             elapsed = time.perf_counter() - t0
-            # a client returns after f+1 replies: let the slowest replica
-            # finish executing before the committee stops
+            # a client may return on speculative replies, before any
+            # replica has committed the last block (then every replica
+            # holds the same, earlier state): wait for the expected state
+            # before the committee stops
             for _ in range(600):
-                if len({r.app.state_digest() for r in com.replicas}) == 1:
+                if {r.app.state_digest() for r in com.replicas} == {expected.state_digest()}:
                     break
                 await asyncio.sleep(0.05)
             return elapsed
@@ -631,9 +657,245 @@ def phase_committee(view_timeout):
     return launches
 
 
-def kernel_rows(rows, launches):
+# all 800 in flight, one burst: each replica process routes its own
+# piles through the adaptive CPU cutoff (20-120 items on the H100's hosts
+# seen). At the client's default 64 a node's piles held 60-110 items and
+# 9 of 16 nodes never reached the card; at 256, 150-165 items, under 2x
+# the cutoff; at 800, 515-631
+DEPLOY_N, DEPLOY_LOAD = 16, 800
+DEPLOY_CONCURRENCY = DEPLOY_LOAD
+
+
+def _last_json(text, key):
+    """The last line of `text` that is a JSON object holding `key`."""
+    for line in reversed(text.splitlines()):
+        line = line.strip()
+        if line.startswith("{"):
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if key in rec:
+                return rec
+    return None
+
+
+def _build_mtimes():
+    from simple_pbft_tpu_torch import BUILD_DIR
+
+    return {os.path.basename(p): os.path.getmtime(p)
+            for p in glob.glob(os.path.join(BUILD_DIR, "*.so"))}
+
+
+def _sample_memory(deploy_dir, n, done, out):
+    """While the nodes serve (every status file written, the launcher not
+    yet done), sample the card's used memory as this process's
+    mem_get_info sees it, and keep the most."""
+    import torch
+
+    status = [os.path.join(deploy_dir, "log", f"r{i}.status.json") for i in range(n)]
+    while not done.is_set() and not all(os.path.exists(s) for s in status):
+        time.sleep(0.1)
+    while not done.is_set():
+        free, total = torch.cuda.mem_get_info(0)
+        out["card_used_max"] = max(out.get("card_used_max", 0), total - free)
+        time.sleep(0.5)
+
+
+def _free_base_port(n):
+    """A base port whose n replica ports (base..base+n-1) and client port
+    (base+500) are free on localhost, derived from the pid so that two
+    smokes on one machine start apart."""
+    import socket
+
+    for step in range(200):
+        base = 40000 + ((os.getpid() + step * 37) % 400) * 50
+        try:
+            socks = []
+            for port in [*range(base, base + n), base + 500]:
+                sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                socks.append(sock)
+                sock.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    check(False, "no free range of ports for the deployment")
+
+
+def phase_deployment():
+    """The port's launcher as a subprocess: n replica processes with the
+    gpu verifier over TCP and one client. Each node's final flight frame
+    (<deploy>/log/<id>.flight.jsonl, written after the replica stopped)
+    holds its verify-service counters, its kernel launches after warm and
+    its executed sequence. Every process the launcher started is gone,
+    and the deployment directory removed, when the phase returns, also
+    when it fails."""
+    deploy_dir = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        return _deployment(deploy_dir)
+    finally:
+        shutil.rmtree(deploy_dir, ignore_errors=True)
+
+
+def _deployment(deploy_dir):
+    import torch
+
+    libs_before = _build_mtimes()
+    torch.cuda.init()
+    free, total = torch.cuda.mem_get_info(0)
+    mem = {"card_used_before": total - free}
+    cmd = [sys.executable, "-m", "simple_pbft_tpu_torch.launch",
+           "-n", str(DEPLOY_N), "--verifier", "gpu", "--transport", "tcp",
+           "--load", str(DEPLOY_LOAD), "--concurrency", str(DEPLOY_CONCURRENCY),
+           "--keep", "--deploy-dir", deploy_dir,
+           "--base-port", str(_free_base_port(DEPLOY_N)), "--device-profile", "120"]
+    log_path = os.path.join(deploy_dir, "launch.stderr")
+    done = threading.Event()
+    sampler = threading.Thread(target=_sample_memory,
+                               args=(deploy_dir, DEPLOY_N, done, mem), daemon=True)
+    t0 = time.perf_counter()
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=err,
+                                text=True, start_new_session=True)
+        sampler.start()
+        try:
+            out, _ = proc.communicate(timeout=900)
+        finally:
+            done.set()
+            if proc.poll() is None:
+                # the launcher's session holds every node: stop them all
+                os.killpg(proc.pid, signal.SIGTERM)
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+            sampler.join(timeout=30)
+    wall_s = time.perf_counter() - t0
+    with open(log_path) as fh:
+        tail = fh.read()[-3000:]
+    check(proc.returncode == 0, f"launch exited {proc.returncode}: {tail}")
+    client = _last_json(out, "ops")
+    check(client is not None, f"no client line in the launcher's output: {out[-2000:]}")
+    check(client["ops"] == DEPLOY_LOAD, f"{client['ops']} of {DEPLOY_LOAD} replies")
+    ready = [ln for ln in out.splitlines() if ln.startswith("nodes ready:")]
+    boot_s = float(ready[-1].split(" in ")[1].split()[0])
+    nodes = {}
+    for i in range(DEPLOY_N):
+        with open(os.path.join(deploy_dir, "log", f"r{i}.flight.jsonl")) as fh:
+            snap = json.loads(fh.read().splitlines()[-1])
+        verify, shapes = snap["verify"], snap["verify"]["device_shapes"]
+        nodes[f"r{i}"] = {
+            "executed_seq": snap["replica"]["executed_seq"],
+            "view": snap["replica"]["view"],
+            "device_passes": verify["device_passes"],
+            "device_pass_items": verify["device_pass_items"],
+            "cpu_passes": verify["cpu_passes"],
+            "cpu_pass_items": verify["cpu_pass_items"],
+            "max_coalesced": verify["max_coalesced"],
+            "rtt_ms_ema": verify["rtt_ms_ema"],
+            "cpu_rate_ema": verify["cpu_rate_ema"],
+            "watchdog_failovers": verify["watchdog_failovers"],
+            "quarantine_entries": verify["quarantine_entries"],
+            "post_warm_compiles": shapes["post_warm_compiles"],
+            "bucket_hits": shapes["bucket_hits"],
+            "kernel_launches": shapes["kernel_launches_after_warm"],
+        }
+    rebuilt = sorted(k for k, v in _build_mtimes().items() if libs_before.get(k) != v)
+    frontier = sorted({v["executed_seq"] for v in nodes.values()})
+    launches = {k: sum(v["kernel_launches"][k] for v in nodes.values())
+                for k in ("fused_accumulate", "encode_verdict")}
+    profile = _profile_summary(os.path.join(deploy_dir, "log", "device_profile"))
+    card_used = mem.get("card_used_max", 0) - mem["card_used_before"]
+    emit("deployment", n=DEPLOY_N, f=(DEPLOY_N - 1) // 3, processes=DEPLOY_N,
+         transport="tcp", load=DEPLOY_LOAD, concurrency=DEPLOY_CONCURRENCY,
+         client=client, boot_s=boot_s,
+         wall_s=wall_s, executed_seq=frontier,
+         views=sorted({v["view"] for v in nodes.values()}),
+         memory={"card_used_bytes": card_used,
+                 "per_process_bytes": card_used / DEPLOY_N},
+         kernel_launches=launches, rebuilt_libraries=rebuilt,
+         device_profile=profile,
+         mac_replies=_kx_available(), nodes=nodes)
+    for node_id, v in nodes.items():
+        check(v["device_passes"] > 0, f"{node_id} made no device pass: {v}")
+        check(v["watchdog_failovers"] == 0 and v["quarantine_entries"] == 0,
+              f"{node_id} left the device: {v}")
+        check(v["post_warm_compiles"] == 0, f"{node_id} met a first-time shape: {v}")
+        check(v["kernel_launches"] == {"fused_accumulate": v["device_passes"],
+                                       "encode_verdict": v["device_passes"]},
+              f"{node_id}: launches {v['kernel_launches']} != one of each per device pass")
+    check(len(frontier) == 1 and frontier[0] > 0, f"nodes stopped on {frontier}")
+    check(all(f"{k}/kernel" in profile["kernels"] for k in launches),
+          f"node r0's device profile holds no launch of a kernel: {profile}")
+    return launches
+
+
+def _kx_available():
+    from simple_pbft_tpu_torch.crypto import mac
+
+    return mac.kx_available()
+
+
+def _profile_summary(out_dir):
+    """Node r0's torch.profiler capture: the trace files, their events by
+    category, and the events naming either kernel."""
+    files = sorted(glob.glob(os.path.join(out_dir, "*.json")))
+    categories, kernels = {}, {}
+    for path in files:
+        with open(path) as fh:
+            for ev in json.load(fh).get("traceEvents", []):
+                cat = str(ev.get("cat", ""))
+                categories[cat] = categories.get(cat, 0) + 1
+                name = str(ev.get("name", ""))
+                for k in ("fused_accumulate", "encode_verdict"):
+                    if k in name:
+                        kernels[f"{k}/{cat}"] = kernels.get(f"{k}/{cat}", 0) + 1
+    return {"files": [os.path.basename(f) for f in files], "categories": categories,
+            "kernels": kernels}
+
+
+def _run_json(args, key, timeout):
+    """Run a module of the port; -> its last JSON line holding `key`."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    rec = _last_json(proc.stdout, key)
+    check(proc.returncode == 0 and rec is not None,
+          f"{args[0]} exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    return rec
+
+
+def phase_bench():
+    t0 = time.perf_counter()
+    bench = _run_json(["simple_pbft_tpu_torch.bench"], "metric", 600)
+    bench_s = time.perf_counter() - t0
+    check("error" not in bench and bench["platform"] == "gpu" and bench["value"] > 0,
+          f"bench line: {bench}")
+    t0 = time.perf_counter()
+    cons = _run_json(["simple_pbft_tpu_torch.bench_consensus", "--configs", "2",
+                      "--verifier", "gpu", "--seconds", "10"], "committed_req_s", 600)
+    cons_s = time.perf_counter() - t0
+    check(cons["committed_req_s"] > 0 and cons["svc_device_passes"] > 0,
+          f"bench_consensus line: committed_req_s {cons['committed_req_s']}, "
+          f"device passes {cons.get('svc_device_passes')}")
+    keys = ("config", "n", "verifier", "clients", "outstanding", "window_s",
+            "committed_req_s", "completed_total", "p50_ms", "p99_ms", "client_timeouts",
+            "replica_exec_min", "replica_exec_max", "verify_calls", "verify_batch_mean",
+            "verify_ms_mean", "svc_device_passes", "svc_device_items", "svc_cpu_passes",
+            "svc_cpu_items", "svc_max_coalesced", "svc_rtt_ms_ema",
+            "svc_watchdog_failovers", "svc_device_shapes")
+    emit("bench", bench=bench, bench_s=bench_s,
+         bench_consensus={k: cons.get(k) for k in keys}, bench_consensus_s=cons_s)
+
+
+def kernel_rows(rows, by_path):
     """The kernels line: each kernel at the largest bucket, in the mode
-    the main path runs it."""
+    the main path runs it; `launches` sums the paths' counts."""
+    launches = {k: sum(p[k] for p in by_path.values())
+                for k in ("fused_accumulate", "encode_verdict")}
     top = max(rows)
     k1 = rows[top]["wire"]
     tail = rows[top]["verdict"]
@@ -645,6 +907,7 @@ def kernel_rows(rows, launches):
         "source": "simple_pbft_tpu_torch/csrc/fused_accumulate.cu",
         "replaces": "simple_pbft_tpu/ops/comb.py:473 (_madd_loop_pallas)",
         "launches": launches["fused_accumulate"],
+        "launches_by_path": {p: v["fused_accumulate"] for p, v in by_path.items()},
         "max_abs_err": err_k1,
         "batch": top,
         "parts": rows[top]["parts"],
@@ -661,6 +924,7 @@ def kernel_rows(rows, launches):
         "replaces": "simple_pbft_tpu/ops/comb.py:506 (batch_invert) + :529 "
                     "(_encode_and_compare), XLA",
         "launches": launches["encode_verdict"],
+        "launches_by_path": {p: v["encode_verdict"] for p, v in by_path.items()},
         "max_abs_err": err_tail,
         "batch": top,
         "ms": tail["kernel_ms"],
@@ -694,9 +958,11 @@ def main(argv=None):
     phase_field()
     rows = phase_kernel()
     phase_verifier()
-    launches = phase_committee(args.view_timeout)
+    by_path = {"committee": phase_committee(args.view_timeout)}
+    by_path["deployment"] = phase_deployment()
+    phase_bench()
     emit("done", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": kernel_rows(rows, launches)}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(rows, by_path)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

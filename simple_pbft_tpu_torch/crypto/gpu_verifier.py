@@ -104,6 +104,12 @@ def _split_items(items: Sequence[BatchItem]):
     return pub, sig[:, :32], sig[:, 32:], msgs, ok
 
 
+def _kernel_launches() -> Dict[str, int]:
+    """The process's launch counts of the device pass's two kernels."""
+    return {"fused_accumulate": comb.accumulate_kernel.launches,
+            "encode_verdict": comb.encode_kernel.launches}
+
+
 def _bucket_size(n: int) -> int:
     for b in BUCKETS:
         if n <= b:
@@ -366,6 +372,7 @@ class GpuVerifier:
         self.post_warm_compiles = 0
         self.bucket_hits: Dict[int, int] = {}
         self._warm_done = False
+        self._launches_at_warm = _kernel_launches()
 
     @classmethod
     def for_population(
@@ -399,6 +406,7 @@ class GpuVerifier:
         top = _bucket_size(max(1, min(max_sweep, BUCKETS[-1])))
         self.warm(pubkeys=pubkeys, buckets=[b for b in BUCKETS if b <= top])
         self._warm_done = True
+        self._launches_at_warm = _kernel_launches()
 
     def warm(
         self,
@@ -436,12 +444,17 @@ class GpuVerifier:
         return fresh
 
     def shape_snapshot(self) -> dict:
-        """Shape-stability counters for the telemetry plane."""
+        """Shape-stability counters for the telemetry plane, and each
+        CUDA kernel's launches in this process since the warm ended."""
         return {
             "warmed": self._warm_done,
             "shape_compiles": self.shape_compiles,
             "post_warm_compiles": self.post_warm_compiles,
             "bucket_hits": {str(k): v for k, v in sorted(self.bucket_hits.items())},
+            "kernel_launches_after_warm": {
+                k: v - self._launches_at_warm[k]
+                for k, v in _kernel_launches().items()
+            },
         }
 
     def verify_batch(self, items: Sequence[BatchItem]) -> List[bool]:

@@ -113,7 +113,8 @@ class DeviceLedger:
         self.node_id = ""
         self.profile_captures = 0
         self.profile_last_dir: Optional[str] = None
-        self._profile_armed = False
+        self._profile: Optional[Tuple[Any, str]] = None
+        self._profile_timer: Optional[Any] = None
         self._reset_locked()
 
     # -- lifecycle -------------------------------------------------------
@@ -320,47 +321,68 @@ class DeviceLedger:
     # -- optional deep capture (--device-profile) ------------------------
 
     def arm_profile(self, out_dir: str, seconds: float) -> bool:
-        """Arm ONE bounded ``torch.profiler`` trace capture on a sidecar
-        daemon thread — off-loop, never in a consensus path, never
-        raises, and a second arm while one is running is a no-op.
-        Artifacts land under ``out_dir`` (the flight dir in node.py /
-        bench_consensus). Returns whether a capture was armed."""
-        if not self._enabled or self._profile_armed or seconds <= 0:
+        """Start ONE bounded ``torch.profiler`` trace capture now, ended
+        after ``seconds`` (at most 120) or by ``stop_profile``, whichever
+        comes first. Never raises; a second arm while one is open is a
+        no-op. Artifacts land under ``out_dir`` (the flight dir in
+        node.py / bench_consensus). Returns whether a capture was armed.
+
+        A torch.profiler session belongs to the thread that starts it:
+        started on a sidecar thread it records nothing, and it can only
+        be stopped where it started. So both ends run on the calling
+        thread (the process's main thread, where node.py and
+        bench_consensus call this from their event loop): the timed end
+        is scheduled on the running loop, whose thread it blocks while
+        the trace is written. CUDA kernel activity is recorded from
+        every thread of the process."""
+        if not self._enabled or self._profile is not None or seconds <= 0:
             return False
-        self._profile_armed = True
+        try:
+            import asyncio  # noqa: PLC0415
+            import os  # noqa: PLC0415
 
-        def run() -> None:
+            import torch  # noqa: PLC0415
+            import torch.profiler as tp  # noqa: PLC0415
+
+            os.makedirs(out_dir, exist_ok=True)
+            acts = [tp.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(tp.ProfilerActivity.CUDA)
+            prof = tp.profile(
+                activities=acts,
+                on_trace_ready=tp.tensorboard_trace_handler(out_dir),
+            )
+            prof.start()
+            self._profile = (prof, out_dir)
             try:
-                import os
-
-                import torch.profiler as tp  # noqa: PLC0415
-
-                os.makedirs(out_dir, exist_ok=True)
-                acts = [tp.ProfilerActivity.CPU]
-                import torch  # noqa: PLC0415
-
-                if torch.cuda.is_available():
-                    acts.append(tp.ProfilerActivity.CUDA)
-                prof = tp.profile(
-                    activities=acts,
-                    on_trace_ready=tp.tensorboard_trace_handler(out_dir),
+                loop = asyncio.get_running_loop()
+            except RuntimeError:
+                loop = None  # no loop: the caller ends it (stop_profile)
+            if loop is not None:
+                self._profile_timer = loop.call_later(
+                    min(float(seconds), 120.0), self.stop_profile
                 )
-                prof.start()
-                try:
-                    time.sleep(min(float(seconds), 120.0))
-                finally:
-                    prof.stop()
-                self.profile_captures += 1
-                self.profile_last_dir = out_dir
-            except Exception:  # noqa: BLE001 — capture is best-effort
-                pass
-            finally:
-                self._profile_armed = False
+            return True
+        except Exception:  # noqa: BLE001 — capture is best-effort
+            return False
 
-        threading.Thread(
-            target=run, name="device-profile", daemon=True
-        ).start()
-        return True
+    def stop_profile(self) -> None:
+        """End an open capture and write its trace. Call it on the thread
+        that armed it; a process that exits inside the window would
+        otherwise lose the whole capture. Never raises."""
+        if self._profile is None:
+            return
+        prof, out_dir = self._profile
+        self._profile = None
+        if self._profile_timer is not None:
+            self._profile_timer.cancel()
+            self._profile_timer = None
+        try:
+            prof.stop()
+            self.profile_captures += 1
+            self.profile_last_dir = out_dir
+        except Exception:  # noqa: BLE001 — capture is best-effort
+            pass
 
 
 # the lane metrics mirrored at the block's top level (the consensus
@@ -419,3 +441,7 @@ def recent(limit: int = 256) -> List[Dict[str, Any]]:
 
 def arm_profile(out_dir: str, seconds: float) -> bool:
     return _ledger.arm_profile(out_dir, seconds)
+
+
+def stop_profile() -> None:
+    _ledger.stop_profile()

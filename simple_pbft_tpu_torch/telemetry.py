@@ -1,0 +1,1138 @@
+"""Unified per-node telemetry plane.
+
+Before this module the system's observability was four disjoint surfaces
+— ``Replica.metrics`` counters, ``ReplicaStats`` histograms, transport
+counters, and the VerifyService's overload/quarantine state — each
+visible only as a one-shot log line at *clean shutdown* (node.py). The
+r5 qc256 wedge cost 25 minutes of blind waiting because a live (or
+SIGKILLed) node exposed nothing. This module makes the same state
+available while the run is live, three ways:
+
+- ``NodeTelemetry.snapshot()``: one dict with a stable schema
+  (``SCHEMA_VERSION``) absorbing all four surfaces;
+- ``StatusServer``: a tiny stdlib asyncio HTTP endpoint per node serving
+  ``/metrics.json`` (the snapshot), ``/healthz``, and ``/trace.json``
+  mid-run;
+- ``FlightRecorder``: periodic snapshots appended as line-flushed JSONL
+  under ``log_dir`` — a wedged or SIGKILLed node still leaves a timeline
+  (the r5 lesson);
+- ``RequestTracer``: deterministically sampled phase-level request
+  tracing (request → pre-prepare → prepare → commit → execute → reply)
+  with monotonic per-phase timestamps and view/seq/digest ids, emitted
+  as JSONL that joins across nodes and client by request id.
+
+A stall-forensics layer rides on the same seams:
+
+- ``LoopLagGauge``: max + EMA of event-loop scheduling delay — a
+  starved dispatcher core (the r5 qc256 suspicion) is one glance in any
+  snapshot instead of an inference from secondary symptoms;
+- ``ProgressWatchdog``: monitors commit progress; when no commit lands
+  for a configurable deadline while client work is outstanding it dumps
+  a forensic autopsy (asyncio task stacks, thread stacks, verify/QC
+  lane depths, in-flight instances, jit shape set, last N spans) so the
+  next qc256-style stall produces a diagnosis file instead of 25
+  minutes of silence. The same dump fires from node.py's final-dump
+  path on SIGTERM/SIGINT and fatal exceptions.
+
+Committee-wide rendering lives in ``tools/pbft_top.py``; per-stage
+latency attribution in ``spans.py`` +
+``tools/critical_path.py``; the schema is documented in
+``docs/OBSERVABILITY.md``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import hashlib
+import json
+import logging
+import os
+import time
+from collections import OrderedDict, deque
+from typing import Any, Dict, List, Optional
+
+from . import clock, sanitize
+from .transport import base as transport_base
+
+log = logging.getLogger("pbft.telemetry")
+
+# The snapshot/trace/evidence stability contract (docs/OBSERVABILITY.md):
+# ADDING a field is always compatible and does NOT bump this; RENAMING or
+# REMOVING one (or changing a field's meaning) bumps it. Consumers
+# (pbft_top, CI scrapers, bench joins, ledger_audit) pin their parsing to
+# this number — it rides every snapshot as BOTH the historical ``schema``
+# key and the explicit top-level ``schema_version``.
+SCHEMA_VERSION = 1
+
+# The BENCH LEDGER's schema (bench_consensus records, tools/wan_campaign
+# cells — the artifacts tools/bench_gate.py compares): same stability
+# contract as the telemetry schema — additions never bump it, renames/
+# removals/meaning changes do. Every ledger line carries it top-level so
+# the gate can refuse to compare across incompatible record shapes.
+BENCH_SCHEMA_VERSION = 1
+
+# message kind -> protocol phase, for the per-phase wire rollups (the
+# aggregation-overlay baseline: prepare/commit are the O(n²) phases the
+# ROADMAP's Handel-style overlay must collapse to O(log n)). Kinds not
+# listed (unknown/forged) report under "other".
+WIRE_PHASE_OF_KIND = {
+    "request": "request",
+    "reply": "reply",
+    "preprepare": "preprepare",
+    "prepare": "prepare",
+    "commit": "commit",
+    "qc": "commit",
+    "checkpoint": "checkpoint",
+    "viewchange": "viewchange",
+    "newview": "viewchange",
+    "newviewfetch": "viewchange",
+    "staterequest": "repair",
+    "stateresponse": "repair",
+    "statechunkrequest": "repair",
+    "statechunkreply": "repair",
+    "blockfetch": "repair",
+    "blockreply": "repair",
+    "slotfetch": "repair",
+    "configfetch": "repair",
+    "configreply": "repair",
+}
+
+
+def load_bench_ledger(path: str) -> List[Dict[str, Any]]:
+    """Every parseable JSON object line of a bench/campaign ledger
+    (torn final lines from a live writer are skipped). Shared by the
+    ledger tools (bench_gate, campaign_report) so the tolerant-reader
+    semantics cannot drift between them."""
+    out: List[Dict[str, Any]] = []
+    with open(path) as fh:
+        for ln in fh:
+            ln = ln.strip()
+            if not ln:
+                continue
+            try:
+                doc = json.loads(ln)
+            except ValueError:
+                continue
+            if isinstance(doc, dict):
+                out.append(doc)
+    return out
+
+
+def ledger_dig(doc: Dict[str, Any], dotted: str) -> Optional[float]:
+    """Dotted-path numeric lookup into a ledger line (``wire.per_commit.
+    total_msgs_per_slot``). None for missing paths and non-numeric
+    values — bools are rejected (True is not 1.0 for gating purposes)."""
+    cur: Any = doc
+    for part in dotted.split("."):
+        if not isinstance(cur, dict) or part not in cur:
+            return None
+        cur = cur[part]
+    if isinstance(cur, bool) or not isinstance(cur, (int, float)):
+        return None
+    return float(cur)
+
+
+def wire_aggregate(per_kind_rows: List[Dict[str, Dict[str, int]]]) -> Dict[str, Dict[str, int]]:
+    """Sum per-kind wire rows (``WireAccounting.per_kind()`` /
+    ``snapshot()["per_kind"]``) across nodes into one committee-wide
+    ``kind -> {sent_msgs, sent_bytes, recv_msgs, recv_bytes, lost_msgs,
+    lost_bytes}`` table."""
+    agg: Dict[str, Dict[str, int]] = {}
+    for rows in per_kind_rows:
+        for kind, row in (rows or {}).items():
+            cell = agg.setdefault(kind, {})
+            for k, v in row.items():
+                cell[k] = cell.get(k, 0) + int(v)
+    return {k: agg[k] for k in sorted(agg)}
+
+
+def wire_delta(start: Dict[str, Dict[str, int]], end: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
+    """end - start per kind per counter (measurement-window accounting;
+    negative deltas clamp to 0 — a restarted node's fresh ledger must
+    not produce nonsense)."""
+    out: Dict[str, Dict[str, int]] = {}
+    for kind, row in end.items():
+        base = start.get(kind, {})
+        d = {k: max(0, int(v) - int(base.get(k, 0))) for k, v in row.items()}
+        if any(d.values()):
+            out[kind] = d
+    return out
+
+
+def wire_per_commit(
+    per_kind: Dict[str, Dict[str, int]], slots: int, requests: int
+) -> Dict[str, Any]:
+    """Derived wire costs: msgs/bytes per committed SLOT (the protocol's
+    O(n²) unit — one slot = one block agreed) and per committed REQUEST
+    (the user-visible unit; requests batch into blocks), per protocol
+    phase and per kind. A phase's ``msgs_per_slot`` IS its broadcast
+    amplification — at n replicas an all-to-all vote phase sits near
+    n*(n-1), which is exactly the curve the aggregation-overlay work
+    must bend (ROADMAP: Handel / aggregated-signature gossip)."""
+    phases: Dict[str, Dict[str, int]] = {}
+    for kind, row in per_kind.items():
+        ph = WIRE_PHASE_OF_KIND.get(kind, "other")
+        cell = phases.setdefault(
+            ph, {"sent_msgs": 0, "sent_bytes": 0, "lost_msgs": 0, "lost_bytes": 0}
+        )
+        cell["sent_msgs"] += row.get("sent_msgs", 0)
+        cell["sent_bytes"] += row.get("sent_bytes", 0)
+        cell["lost_msgs"] += row.get("lost_msgs", 0)
+        cell["lost_bytes"] += row.get("lost_bytes", 0)
+    slots = max(1, int(slots))
+    requests = max(1, int(requests))
+    # per-kind per-commit detail (the acceptance unit: a ledger line
+    # carries per-PHASE and per-KIND costs — "prepare is 12 msgs/slot"
+    # and "qc is 40% of commit-phase bytes" are both one lookup)
+    out_kinds: Dict[str, Any] = {}
+    for kind in sorted(per_kind):
+        row = per_kind[kind]
+        out_kinds[kind] = {
+            "phase": WIRE_PHASE_OF_KIND.get(kind, "other"),
+            "msgs_per_slot": round(row.get("sent_msgs", 0) / slots, 2),
+            "bytes_per_slot": round(row.get("sent_bytes", 0) / slots, 1),
+            "msgs_per_req": round(row.get("sent_msgs", 0) / requests, 2),
+            "bytes_per_req": round(row.get("sent_bytes", 0) / requests, 1),
+        }
+    out_phases: Dict[str, Any] = {}
+    tot_msgs = tot_bytes = 0
+    for ph in sorted(phases):
+        cell = phases[ph]
+        tot_msgs += cell["sent_msgs"]
+        tot_bytes += cell["sent_bytes"]
+        out_phases[ph] = {
+            "msgs_per_slot": round(cell["sent_msgs"] / slots, 2),
+            "bytes_per_slot": round(cell["sent_bytes"] / slots, 1),
+            "msgs_per_req": round(cell["sent_msgs"] / requests, 2),
+            "bytes_per_req": round(cell["sent_bytes"] / requests, 1),
+            "lost_msgs": cell["lost_msgs"],
+            "lost_bytes": cell["lost_bytes"],
+        }
+    return {
+        "slots": slots,
+        "requests": requests,
+        "per_kind": out_kinds,
+        "per_phase": out_phases,
+        "total_msgs_per_slot": round(tot_msgs / slots, 2),
+        "total_bytes_per_slot": round(tot_bytes / slots, 1),
+        "total_msgs_per_req": round(tot_msgs / requests, 2),
+        "total_bytes_per_req": round(tot_bytes / requests, 1),
+    }
+
+
+# ---------------------------------------------------------------------------
+# per-surface snapshot helpers (each tolerates a missing/foreign object)
+# ---------------------------------------------------------------------------
+
+
+def replica_snapshot(replica) -> Dict[str, Any]:
+    """Consensus-plane state + counters + histograms for one replica."""
+    last = getattr(replica, "last_commit_mono", 0.0)
+    return {
+        "id": replica.id,
+        "running": bool(replica._running),
+        # seconds since this replica last applied a block (None = never):
+        # the stall gauge pbft_top's CAGE column and the progress
+        # watchdog both read
+        "last_commit_age_s": (
+            round(clock.now() - last, 3) if last else None
+        ),
+        "view": replica.view,
+        "is_primary": replica.is_primary,
+        "in_view_change": bool(replica.vc.in_view_change),
+        # live-reconfiguration state: committee epoch, whether
+        # this replica was retired by a committed config change, and
+        # whether a chunked state transfer is currently in flight
+        "epoch": getattr(replica.cfg, "epoch", 0),
+        "retired": bool(getattr(replica, "retired", False)),
+        "statesync_active": bool(
+            getattr(getattr(replica, "statesync", None), "syncing", False)
+        ),
+        "executed_seq": replica.executed_seq,
+        "stable_seq": replica.stable_seq,
+        "next_seq": replica.next_seq,
+        "max_committed_seen": replica.max_committed_seen,
+        "pending_requests": len(replica.pending_requests),
+        "relay_buffer": len(replica.relay_buffer),
+        "instances": len(replica.instances),
+        "ready_holes": len(replica.ready),
+        "metrics": dict(sorted(replica.metrics.items())),
+        "stats": replica.stats.snapshot(),
+        # speculative-execution engine state: open slot
+        # count + fork posture; the spec_executed/spec_rolled_back
+        # counters ride the metrics dict and spec_reply_ms the stats
+        # block — pbft_top's SPEC column reads all three
+        "spec": (
+            replica.spec.snapshot()
+            if getattr(replica, "spec", None) is not None
+            else None
+        ),
+        # trace-plane quorum block: per-certificate vote
+        # arrival-order statistics — live (2f+1)-th-vs-slowest margin
+        # histogram and the current straggler id. pbft_top's TRACE
+        # column reads this; None on replicas without QuorumStats
+        "quorum": (
+            replica.qstats.snapshot()
+            if getattr(replica, "qstats", None) is not None
+            else None
+        ),
+    }
+
+
+def transport_snapshot(transport) -> Dict[str, Any]:
+    """Wire-level counters; every transport exposes a ``metrics`` dict
+    (tcp/grpc natively, local endpoints since this module landed). A
+    node whose transport chain includes a faults.ShapedTransport also
+    reports its link-shaping state (active WAN profile, open partition
+    cuts, loss/partition drop counters) — pbft_top's NET column."""
+    snap = {
+        "kind": type(transport).__name__,
+        "metrics": dict(getattr(transport, "metrics", {}) or {}),
+    }
+    shaping = getattr(transport, "shaping_snapshot", None)
+    if callable(shaping):
+        try:
+            snap["shaping"] = shaping()
+        except Exception:  # noqa: BLE001 — telemetry never raises inward
+            pass
+    try:
+        # per-link per-kind msgs+bytes accounting: the wire
+        # block every transport flavor now carries — pbft_top's NETIO
+        # column and the campaign/bench wire rollups read this
+        wire = transport_base.wire_of(transport)
+        if wire is not None:
+            snap["wire"] = wire.snapshot()
+    except Exception:  # noqa: BLE001 — telemetry never raises inward
+        pass
+    return snap
+
+
+def verify_service_snapshot(verifier) -> Dict[str, Any]:
+    """Overload/quarantine state for a coalescing VerifyService; a plain
+    CPU verifier reports just its name (nothing to overload)."""
+    snap = getattr(verifier, "snapshot", None)
+    if callable(snap):
+        return snap()
+    return {"name": getattr(verifier, "name", type(verifier).__name__)}
+
+
+def client_snapshot(client) -> Dict[str, Any]:
+    return {
+        "id": client.id,
+        "view_hint": client.view_hint,
+        "inflight": len(client._waiters),
+        "metrics": dict(sorted(client.metrics.items())),
+    }
+
+
+def qc_lane_snapshot() -> Optional[Dict[str, Any]]:
+    """Counters of the process-wide QC verify lane (consensus/qc.py:
+    queue depth, batch size, pairing latency), or None when no
+    certificate was ever submitted — non-QC nodes carry no extra key."""
+    from .consensus import qc as qc_mod
+
+    return qc_mod.lane_snapshot()
+
+
+class NodeTelemetry:
+    """One node's unified registry: compose whatever surfaces the node
+    has (a replica node has replica+transport+verifier; a client node
+    has client+transport) into one ``snapshot()`` with a stable schema."""
+
+    def __init__(
+        self,
+        node_id: str,
+        replica=None,
+        transport=None,
+        client=None,
+        tracer: Optional["RequestTracer"] = None,
+        loop_lag: Optional["LoopLagGauge"] = None,
+        traffic=None,
+        knobs=None,
+    ) -> None:
+        self.node_id = node_id
+        self.replica = replica
+        self.transport = transport
+        self.client = client
+        self.tracer = tracer
+        self.loop_lag = loop_lag
+        # workload.TrafficStats: the open-loop traffic
+        # plane's per-class offered/accepted/shed/latency accounting —
+        # plane-wide, reported identically by every in-process node
+        self.traffic = traffic
+        # controller.KnobRegistry: live knob values + bounds
+        # and the controller's posture — committee-wide, like traffic
+        self.knobs = knobs
+        self._t0 = clock.now()
+
+    def snapshot(self) -> Dict[str, Any]:
+        now = clock.now()
+        snap: Dict[str, Any] = {
+            "schema": SCHEMA_VERSION,  # historical spelling, kept stable
+            "schema_version": SCHEMA_VERSION,
+            "node": self.node_id,
+            "t_wall": round(time.time(), 3),  # pbftlint: disable=PBL007 -- human-facing wall timestamp, not a timer
+            "t_mono": round(now, 3),
+            "uptime_s": round(now - self._t0, 3),
+        }
+        if self.replica is not None:
+            snap["replica"] = replica_snapshot(self.replica)
+            snap["verify"] = verify_service_snapshot(self.replica.verifier)
+            auditor = getattr(self.replica, "auditor", None)
+            if auditor is not None:
+                # consensus audit plane: violation/observation
+                # counters + the evidence chain head — pbft_top's AUD
+                # column and the CI audit smoke read this
+                snap["audit"] = auditor.snapshot()
+            lane = qc_lane_snapshot()
+            if lane is not None:
+                # QC-plane fast path: certificate-verify queue
+                # depth / batch size / pairing latency — process-wide,
+                # reported identically by every in-process node
+                snap["qc_lane"] = lane
+        if self.transport is not None:
+            snap["transport"] = transport_snapshot(self.transport)
+        if self.client is not None:
+            snap["client"] = client_snapshot(self.client)
+        if self.loop_lag is not None:
+            # event-loop scheduling delay: a starved dispatcher
+            # core shows here before it shows anywhere else
+            snap["loop_lag"] = self.loop_lag.snapshot()
+        if self.traffic is not None:
+            # traffic observatory: per-class offered vs
+            # accepted req/s, shed counts, windowed latency percentiles
+            # — pbft_top's LOAD column and tools/traffic_report.py read
+            # this (additive key: SCHEMA_VERSION unchanged)
+            snap["traffic"] = self.traffic.snapshot_block()
+        if self.knobs is not None:
+            # self-driving perf plane: knob values/bounds +
+            # controller posture — pbft_top's CTL column reads this
+            # (additive key: SCHEMA_VERSION unchanged, per the stability
+            # contract above)
+            snap["knobs"] = self.knobs.snapshot_block()
+        if self.tracer is not None:
+            snap["tracer"] = {
+                "sample_mod": self.tracer.sample_mod,
+                "events_emitted": self.tracer.events_emitted,
+                # sampling loss made measurable: how
+                # many sampling decisions declined to trace
+                "trace_dropped": self.tracer.trace_dropped,
+            }
+        from . import spans as spans_mod
+
+        span_snap = spans_mod.recorder()
+        if span_snap.recorded:
+            # per-stage latency attribution (spans.py): process-wide, so
+            # every in-process node reports the same decomposition
+            snap["spans"] = span_snap.snapshot()
+        return snap
+
+    def health(self) -> Dict[str, Any]:
+        """Cheap liveness summary for /healthz: is the node's event
+        machinery up, and is anything currently degraded."""
+        degraded = False
+        running = True
+        if self.replica is not None:
+            running = bool(self.replica._running)
+            degraded = bool(self.replica.metrics.get("degraded_mode", 0))
+            svc = self.replica.verifier
+            degraded = degraded or bool(getattr(svc, "degraded", False))
+        return {
+            "ok": running,
+            "node": self.node_id,
+            "uptime_s": round(clock.now() - self._t0, 3),
+            "degraded": degraded,
+        }
+
+
+# ---------------------------------------------------------------------------
+# flight recorder: periodic snapshots as crash-surviving JSONL
+# ---------------------------------------------------------------------------
+
+
+class _JsonlSink:
+    """Line-flushed JSONL appender with one-backup size rotation and
+    write-failure degradation.
+
+    Telemetry must never take down the node it observes: a write error
+    (ENOSPC, log_dir removed) closes the sink and telemetry degrades to
+    its in-memory surfaces instead of raising into the consensus or
+    client hot path. Rotation (``path`` -> ``path.1``, one backup, like
+    logutil's rotating logs) bounds what a long-lived node can fill the
+    disk with."""
+
+    def __init__(self, path: str, max_bytes: int = 64 * 1024 * 1024):
+        self.path = path
+        self.max_bytes = max_bytes
+        self.write_errors = 0
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._fh = open(path, "a", buffering=1)
+
+    def write(self, doc: Dict[str, Any]) -> None:
+        if self._fh is None:
+            return
+        try:
+            self._fh.write(json.dumps(doc, sort_keys=True) + "\n")
+            if self._fh.tell() >= self.max_bytes:
+                self._fh.close()
+                os.replace(self.path, self.path + ".1")
+                self._fh = open(self.path, "a", buffering=1)
+        except (OSError, ValueError):
+            self.write_errors += 1
+            try:
+                if self._fh is not None:
+                    self._fh.close()
+            except OSError:
+                pass
+            self._fh = None  # degraded: ring/log surfaces remain
+
+    def close(self) -> None:
+        if self._fh is not None:
+            try:
+                self._fh.close()
+            except OSError:
+                pass
+            self._fh = None
+
+
+class FlightRecorder:
+    """Append ``telemetry.snapshot()`` as one JSONL line per interval.
+
+    Lines are flushed as written (line-buffered file), so a SIGKILL or a
+    wedged event loop still leaves every completed snapshot on disk —
+    the timeline that reconstructs a degraded window post-hoc without a
+    clean shutdown."""
+
+    def __init__(self, telemetry: NodeTelemetry, path: str, interval: float = 1.0):
+        self.telemetry = telemetry
+        self.path = path
+        self.interval = interval
+        self._sink = _JsonlSink(path)
+        self._task: Optional[asyncio.Task] = None
+        self._snap_errors = 0
+
+    def record_once(self) -> None:
+        # loop-confined by design: snapshot() reads unlocked surfaces
+        # that only the loop thread mutates (sanitizer-asserted)
+        sanitize.check_owner(("flight", id(self)), "FlightRecorder.record_once")
+        try:
+            snap = self.telemetry.snapshot()
+        except Exception:  # a snapshot bug must not kill the timeline
+            if not self._snap_errors:
+                log.exception("flight snapshot failed (logged once)")
+            self._snap_errors += 1
+            return
+        self._sink.write(snap)
+
+    async def _run(self) -> None:
+        while True:
+            self.record_once()
+            await clock.sleep(self.interval)
+
+    def start(self) -> None:
+        self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            except Exception:  # a dead recorder must not abort shutdown
+                log.exception("flight recorder task failed")
+            self._task = None
+        sanitize.release_owner(("flight", id(self)))
+        self.record_once()  # final frame: the clean-shutdown state
+        self._sink.close()
+
+
+# ---------------------------------------------------------------------------
+# event-loop lag gauge + progress watchdog with forensic autopsy
+# ---------------------------------------------------------------------------
+
+
+class LoopLagGauge:
+    """Event-loop scheduling-delay gauge: how late does a sleep wake up.
+
+    A task sleeps ``interval`` and measures the overshoot — the time the
+    loop spent running OTHER callbacks past this task's due time. On a
+    healthy loop that is microseconds; a loop starved by a long callback
+    (a big batch prepped inline, a pairing that leaked onto the loop) or
+    a contended core (the r5 qc256 suspicion: one dispatcher core fed by
+    256 replicas) reads tens to hundreds of ms. Max + EMA land in every
+    snapshot, so starvation is a gauge, not an inference."""
+
+    def __init__(self, interval: float = 0.1):
+        self.interval = interval
+        self.max_ms = 0.0
+        self.ema_ms = 0.0
+        self.last_ms = 0.0
+        self.samples = 0
+        self._task: Optional[asyncio.Task] = None
+
+    async def _run(self) -> None:
+        while True:
+            due = clock.now() + self.interval
+            await clock.sleep(self.interval)
+            lag_ms = max(0.0, (clock.now() - due)) * 1e3
+            self.last_ms = lag_ms
+            self.samples += 1
+            if lag_ms > self.max_ms:
+                self.max_ms = lag_ms
+            self.ema_ms = (
+                lag_ms if self.samples == 1
+                else 0.9 * self.ema_ms + 0.1 * lag_ms
+            )
+
+    def start(self) -> None:
+        self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "max_ms": round(self.max_ms, 3),
+            "ema_ms": round(self.ema_ms, 3),
+            "last_ms": round(self.last_ms, 3),
+            "samples": self.samples,
+        }
+
+
+def _format_stacks() -> Dict[str, Any]:
+    """Every asyncio task's coroutine stack + every thread's frame stack,
+    as printable strings. Pure introspection — safe to call from a
+    watchdog while the rest of the process is wedged (the wedge is
+    exactly when this runs)."""
+    import sys
+    import traceback
+
+    tasks = []
+    try:
+        for task in asyncio.all_tasks():
+            frames = task.get_stack(limit=12)
+            tasks.append({
+                "name": task.get_name(),
+                "done": task.done(),
+                "stack": [
+                    ln.rstrip()
+                    for f in frames
+                    for ln in traceback.format_stack(f, limit=1)
+                ],
+            })
+    except RuntimeError:
+        pass  # no running loop (called from a thread): threads still dump
+    threads = {}
+    import threading as _threading
+
+    names = {t.ident: t.name for t in _threading.enumerate()}
+    for ident, frame in sys._current_frames().items():
+        threads[names.get(ident, str(ident))] = [
+            ln.rstrip() for ln in traceback.format_stack(frame, limit=12)
+        ]
+    return {"tasks": tasks, "threads": threads}
+
+
+def diagnose_stall(snap: Dict[str, Any]) -> Dict[str, str]:
+    """Name the stalled stage from one snapshot — the one-line verdict a
+    wedge autopsy leads with. Ordered by causal depth: a device dispatch
+    that never returned explains a full verify queue, which explains a
+    phase that never prepared; blame the deepest symptom present."""
+    ver = snap.get("verify") or {}
+    lane = snap.get("qc_lane") or {}
+    lag = snap.get("loop_lag") or {}
+    rep = snap.get("replica") or {}
+    age = ver.get("inflight_oldest_age_s") or 0.0
+    if ver.get("inflight_passes") and age >= 1.0:
+        return {
+            "stage": "verify.device",
+            "detail": f"device dispatch in flight for {age:.1f}s "
+            f"({ver.get('pending_items', 0)} items queued behind it)",
+        }
+    if ver.get("pending_items", 0) > 0:
+        return {
+            "stage": "verify.queue",
+            "detail": f"{ver['pending_items']} items pending, "
+            f"{ver.get('inflight_passes', 0)} passes in flight "
+            f"(rtt_ms_ema {ver.get('rtt_ms_ema', 0)})",
+        }
+    if lane.get("pending", 0) > 0 or lane.get("inflight", 0) > 0:
+        return {
+            "stage": "qc.pairing",
+            "detail": f"{lane.get('pending', 0)} certs pending / "
+            f"{lane.get('inflight', 0)} in flight "
+            f"(pairing_ms_ema {lane.get('pairing_ms_ema', 0)})",
+        }
+    if lag.get("ema_ms", 0.0) > 100.0:
+        return {
+            "stage": "event_loop",
+            "detail": f"scheduling delay ema {lag['ema_ms']:.0f} ms "
+            f"(max {lag.get('max_ms', 0):.0f} ms) — loop starved",
+        }
+    if rep.get("in_view_change"):
+        return {"stage": "view_change",
+                "detail": f"frozen in view change at view {rep.get('view')}"}
+    if rep.get("ready_holes", 0) > 0:
+        return {
+            "stage": "phase.execute",
+            "detail": f"{rep['ready_holes']} committed blocks parked "
+            f"behind an execution hole at seq "
+            f"{rep.get('executed_seq', 0) + 1}",
+        }
+    if rep.get("instances", 0) > 0:
+        return {
+            "stage": "phase.prepare",
+            "detail": f"{rep['instances']} instances in flight, none "
+            "reaching quorum (votes lost or peers stalled)",
+        }
+    return {"stage": "unknown",
+            "detail": "no queued work visible in the snapshot"}
+
+
+class ProgressWatchdog:
+    """Commit-progress watchdog with automatic forensic dumps.
+
+    Watches one replica's execution frontier; when no block commits for
+    ``deadline`` seconds WHILE client work is outstanding (an idle
+    committee is not a stall), it writes one autopsy JSON file — the
+    full snapshot plus asyncio task stacks, thread stacks, the
+    in-flight instance table, and the last N spans — and appends an
+    ``{"evt": "autopsy"}`` line through the flight recorder's sink when
+    one is attached. One dump per stall: the watchdog re-arms only
+    after progress resumes, so a 25-minute wedge costs one file, not
+    1500. The r5 qc256 wedge produced zero diagnostic output; this is
+    the counterfactual."""
+
+    def __init__(
+        self,
+        telemetry: NodeTelemetry,
+        path: Optional[str] = None,
+        deadline: float = 30.0,
+        interval: float = 0.5,
+        flight: Optional[FlightRecorder] = None,
+    ) -> None:
+        self.telemetry = telemetry
+        self.path = path
+        self.deadline = deadline
+        self.interval = interval
+        self.flight = flight
+        self.dumps = 0
+        self.last_dump_path: Optional[str] = None
+        self._armed = True
+        self._t_progress = clock.now()
+        self._last_exec = -1
+        self._task: Optional[asyncio.Task] = None
+
+    def _work_visible(self, rep) -> bool:
+        """Is there ANY work the committee owes progress on? Beyond the
+        replica's own view (has_outstanding_work), queued crypto counts:
+        a sweep stuck in the verify service never even REACHES the
+        consensus state the replica's check reads — exactly the r5
+        device-stall shape, where the primary looked idle because the
+        request was wedged one layer below it."""
+        try:
+            if rep.has_outstanding_work():
+                return True
+        except Exception:
+            return True  # introspection failing IS suspicious
+        svc = rep.verifier
+        if getattr(svc, "_pending_items", 0) or getattr(svc, "_inflight", 0):
+            return True
+        lane = qc_lane_snapshot()
+        if lane is not None and (lane["pending"] or lane["inflight"]):
+            return True
+        return False
+
+    def _check(self) -> None:
+        rep = self.telemetry.replica
+        if rep is None:
+            return
+        now = clock.now()
+        exec_seq = rep.executed_seq
+        if exec_seq != self._last_exec:
+            self._last_exec = exec_seq
+            self._t_progress = now
+            self._armed = True  # progress resumed: next stall dumps again
+            return
+        if not self._work_visible(rep):
+            # idle is not a stall: the clock starts when work arrives.
+            # Re-arm too — a stall that CLEARED without a commit (shed
+            # queue, clients gave up) must not leave the watchdog dead
+            # for the next, distinct wedge (progress alone re-arms only
+            # when something actually commits)
+            self._t_progress = now
+            self._armed = True
+            return
+        stalled_for = now - self._t_progress
+        if self._armed and stalled_for >= self.deadline:
+            self._armed = False
+            self.dump(
+                f"no commit for {stalled_for:.1f}s with outstanding work "
+                f"(deadline {self.deadline:.1f}s)"
+            )
+
+    async def _run(self) -> None:
+        while True:
+            try:
+                self._check()
+            except Exception:  # the watchdog must outlive snapshot bugs
+                log.exception("progress watchdog check failed")
+            await clock.sleep(self.interval)
+
+    def start(self) -> None:
+        self._t_progress = clock.now()
+        self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+
+    def _instance_table(self, limit: int = 64) -> List[Dict[str, Any]]:
+        """The oldest in-flight (view, seq) instances with their stage —
+        which slot is stuck, and at what phase."""
+        rep = self.telemetry.replica
+        if rep is None:
+            return []
+        now = clock.now()
+        rows = []
+        for (view, seq), inst in sorted(rep.instances.items())[:limit]:
+            if inst.executed:
+                continue
+            rows.append({
+                "view": view,
+                "seq": seq,
+                "stage": inst.stage.name,
+                "age_s": (
+                    round(now - inst.t_started, 3) if inst.t_started else None
+                ),
+                "prepares": len(inst.prepares),
+                "commits": len(inst.commits),
+                "has_block": inst.block is not None,
+                "prepare_qc": inst.prepare_qc is not None,
+                "commit_qc": inst.commit_qc is not None,
+                # conflicting-digest rejections this slot turned away: a
+                # contested slot (fork in flight) reads differently from
+                # a merely starved one in a wedge autopsy
+                "conflicts": len(getattr(inst, "conflicts", ())),
+            })
+        return rows
+
+    def dump(self, reason: str, path: Optional[str] = None) -> Optional[str]:
+        """Write the autopsy NOW. ``path`` overrides the configured
+        stall-autopsy file — the SIGTERM/final-dump entry (node.py)
+        passes a distinct one, because "latest wins" at the stall path
+        would let a healthy shutdown snapshot OVERWRITE the wedged-state
+        forensics the stall dump captured earlier in the run. Returns
+        the file path, or None when only in-memory/log surfaces were
+        available."""
+        from . import spans as spans_mod
+
+        try:
+            snap = self.telemetry.snapshot()
+        except Exception:
+            log.exception("autopsy snapshot failed; dumping stacks only")
+            snap = {"error": "snapshot failed"}
+        doc = {
+            "evt": "autopsy",
+            "schema": SCHEMA_VERSION,
+            "node": self.telemetry.node_id,
+            "reason": reason,
+            "t_wall": round(time.time(), 3),  # pbftlint: disable=PBL007 -- human-facing wall timestamp, not a timer
+            "t_mono": round(clock.now(), 3),
+            "suspect": diagnose_stall(snap),
+            "snapshot": snap,
+            "instances_inflight": self._instance_table(),
+            "spans_recent": spans_mod.recent(256),
+            **_format_stacks(),
+        }
+        self.dumps += 1
+        log.error(
+            "AUTOPSY %s: %s — suspect %s (%s)",
+            self.telemetry.node_id, reason,
+            doc["suspect"]["stage"], doc["suspect"]["detail"],
+        )
+        if self.flight is not None:
+            # the autopsy joins the flight timeline too (one JSONL line),
+            # so post-mortem tooling sees WHEN in the timeline it fired
+            self.flight._sink.write(doc)
+        out_path = path if path is not None else self.path
+        if out_path is None:
+            return None
+        try:
+            os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+            tmp = f"{out_path}.tmp"
+            with open(tmp, "w") as fh:
+                json.dump(doc, fh, sort_keys=True, indent=1)
+            os.replace(tmp, out_path)  # latest stall autopsy wins, atomically
+        except OSError:
+            log.exception("autopsy write failed (in-memory surfaces remain)")
+            return None
+        self.last_dump_path = out_path
+        return out_path
+
+
+# ---------------------------------------------------------------------------
+# live HTTP exposure: /metrics.json /healthz /trace.json
+# ---------------------------------------------------------------------------
+
+
+class StatusServer:
+    """Minimal stdlib asyncio HTTP/1.0 status endpoint for one node.
+
+    Serves the unified snapshot mid-run — no framework, no threads, no
+    dependency; one short-lived connection per scrape (pbft_top, curl).
+    PBFT's security model is unchanged: the endpoint is read-only and
+    binds loopback by default."""
+
+    def __init__(
+        self,
+        telemetry: NodeTelemetry,
+        host: str = "127.0.0.1",
+        port: int = 0,
+    ) -> None:
+        self.telemetry = telemetry
+        self.host = host
+        self.port = port
+        self._server: Optional[asyncio.AbstractServer] = None
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(
+            self._handle, self.host, self.port
+        )
+
+    @property
+    def bound_port(self) -> int:
+        if self._server is None:
+            raise RuntimeError("StatusServer not started")
+        return self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+            self._server = None
+
+    def _route(self, path: str):
+        """Returns (status, payload dict) for one GET path."""
+        if path in ("/metrics.json", "/metrics"):
+            return 200, self.telemetry.snapshot()
+        if path == "/healthz":
+            h = self.telemetry.health()
+            return (200 if h["ok"] else 503), h
+        if path in ("/trace.json", "/trace"):
+            tracer = self.telemetry.tracer
+            if tracer is None:
+                return 404, {"error": "no tracer attached"}
+            return 200, {
+                "schema": SCHEMA_VERSION,
+                "node": self.telemetry.node_id,
+                "events": tracer.recent(),
+            }
+        return 404, {"error": f"unknown path {path!r}",
+                     "paths": ["/metrics.json", "/healthz", "/trace.json"]}
+
+    async def _handle(self, reader, writer) -> None:
+        try:
+            request = await asyncio.wait_for(reader.readline(), 5.0)
+            while True:  # drain headers; we serve GETs only
+                line = await asyncio.wait_for(reader.readline(), 5.0)
+                if line in (b"\r\n", b"\n", b""):
+                    break
+            parts = request.split()
+            path = parts[1].decode("ascii", "replace") if len(parts) >= 2 else "/"
+            try:
+                status, payload = self._route(path.split("?", 1)[0])
+                body = json.dumps(payload, sort_keys=True).encode()
+            except Exception:  # a snapshot bug must not kill the server
+                log.exception("status snapshot failed")
+                status, body = 500, b'{"error":"snapshot failed"}'
+            reason = {200: "OK", 404: "Not Found", 500: "Error",
+                      503: "Unavailable"}.get(status, "OK")
+            writer.write(
+                f"HTTP/1.0 {status} {reason}\r\n"
+                f"Content-Type: application/json\r\n"
+                f"Content-Length: {len(body)}\r\n"
+                f"Connection: close\r\n\r\n".encode() + body
+            )
+            await writer.drain()
+        except (asyncio.TimeoutError, ValueError, ConnectionError, OSError):
+            # ValueError: StreamReader.readline on an over-limit line —
+            # a malformed scrape is a bad request, not a handler crash
+            pass
+        finally:
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except (ConnectionError, OSError):
+                pass
+
+
+def write_status_file(log_dir: str, node_id: str, port: int) -> str:
+    """Endpoint-discovery drop: ``<log_dir>/<node_id>.status.json`` names
+    the live /metrics.json port so pbft_top can find a committee without
+    being handed every port by hand."""
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"{node_id}.status.json")
+    with open(path, "w") as fh:
+        json.dump(
+            {"node": node_id, "host": "127.0.0.1", "port": port,
+             "pid": os.getpid(), "schema": SCHEMA_VERSION,
+             "schema_version": SCHEMA_VERSION},
+            fh,
+        )
+    return path
+
+
+# ---------------------------------------------------------------------------
+# sampled phase-level request tracing
+# ---------------------------------------------------------------------------
+
+
+def request_id(client_id: str, timestamp: int) -> str:
+    """The cross-node join key: a request is (client, timestamp)
+    everywhere in the protocol, so the trace id is exactly that."""
+    return f"{client_id}:{timestamp}"
+
+
+def trace_sampled(client_id: str, timestamp: int, sample_mod: int) -> bool:
+    """Deterministic sampling by hash of (client_id, timestamp) — never
+    ``random``: every node (and the client) makes the SAME decision for
+    a request, so a sampled request's events exist at every hop and join
+    into a complete lifecycle. sample_mod N keeps ~1/N of requests;
+    1 keeps everything; <= 0 keeps nothing."""
+    if sample_mod <= 0:
+        return False
+    if sample_mod == 1:
+        return True
+    h = hashlib.sha256(request_id(client_id, timestamp).encode()).digest()
+    return int.from_bytes(h[:8], "big") % sample_mod == 0
+
+
+def resolve_sample_mod(value: float) -> int:
+    """Map a ``--trace-sample`` argument to a sampling modulus.
+
+    Two spellings, one flag: a value in (0, 1] is a
+    FRACTION — ``--trace-sample 1.0`` is the explicit full-fidelity
+    debug mode, 0.25 keeps ~a quarter; a value > 1 is the historical
+    modulus — 128 keeps ~1/128. 0 (or negative) disables tracing."""
+    v = float(value)
+    if v <= 0:
+        return 0
+    if v <= 1.0:
+        return max(1, round(1.0 / v))
+    return int(round(v))
+
+
+class RequestTracer:
+    """Per-node emitter for sampled request lifecycle events.
+
+    Events carry both wall-clock (``t_wall`` — joins across nodes) and
+    monotonic (``t_mono`` — exact per-phase deltas within a node)
+    timestamps, plus view/seq/digest once the request is bound to a
+    slot. Sinks: an in-memory ring (served at /trace.json, read by
+    tests) and optionally a line-flushed JSONL file under log_dir.
+
+    Phases stamped by the runtime:
+      client:  submit -> retransmit* -> accepted
+      replica: request -> pre_prepare -> prepare -> commit -> execute -> reply
+    """
+
+    MAX_SLOTS = 1024  # sampled (view, seq) -> request-id bindings kept
+
+    def __init__(
+        self,
+        node_id: str,
+        sample_mod: int = 64,
+        path: Optional[str] = None,
+        ring: int = 1024,
+    ) -> None:
+        self.node_id = node_id
+        self.sample_mod = sample_mod
+        self._ring: deque = deque(maxlen=ring)
+        self._slots: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._sink = _JsonlSink(path) if path else None
+        self.events_emitted = 0
+        # sampling loss, counted where it happens: every sampling
+        # decision that declined to trace. A run asserting "why is this
+        # request missing from the trace" reads this instead of guessing
+        # whether the tracer dropped it or never saw it (0 under --trace-sample 1.0 is the full-fidelity
+        # proof).
+        self.trace_dropped = 0
+
+    def rid_if_sampled(self, client_id: str, timestamp: int) -> Optional[str]:
+        """The request id when sampled, else None — the one-call shape
+        the hot paths use (decision + id together, one sampling rule:
+        ``trace_sampled``)."""
+        if trace_sampled(client_id, timestamp, self.sample_mod):
+            return request_id(client_id, timestamp)
+        self.trace_dropped += 1
+        return None
+
+    def emit(self, phase: str, rid: str, **fields) -> None:
+        ev: Dict[str, Any] = {
+            "evt": "trace",
+            "schema": SCHEMA_VERSION,
+            "node": self.node_id,
+            "rid": rid,
+            "phase": phase,
+            "t_wall": time.time(),  # pbftlint: disable=PBL007 -- human-facing wall timestamp, not a timer
+            "t_mono": clock.now(),
+        }
+        for k, v in fields.items():
+            if v is not None:
+                ev[k] = v
+        self._ring.append(ev)
+        self.events_emitted += 1
+        if self._sink is not None:
+            self._sink.write(ev)  # degrades to ring-only on write failure
+
+    # -- slot binding: phase events are per-(view, seq), requests ride them
+
+    def note_block(self, view: int, seq: int, digest: str, reqs) -> None:
+        """An admitted pre-prepare binds its block's sampled requests to
+        (view, seq, digest): emit their pre_prepare events and remember
+        the binding so later slot-level phases fan out to them."""
+        rids = [
+            rid
+            for r in reqs
+            if (rid := self.rid_if_sampled(r.client_id, r.timestamp))
+        ]
+        if not rids:
+            return
+        key = (view, seq)
+        if key not in self._slots and len(self._slots) >= self.MAX_SLOTS:
+            self._slots.popitem(last=False)
+        self._slots[key] = (digest, rids)
+        for rid in rids:
+            self.emit("pre_prepare", rid, view=view, seq=seq, digest=digest)
+
+    def slot_event(self, phase: str, view: int, seq: int) -> None:
+        ent = self._slots.get((view, seq))
+        if ent is None:
+            return
+        digest, rids = ent
+        for rid in rids:
+            self.emit(phase, rid, view=view, seq=seq, digest=digest)
+
+    def release_slot(self, view: int, seq: int) -> None:
+        self._slots.pop((view, seq), None)
+
+    def recent(self) -> List[Dict[str, Any]]:
+        return list(self._ring)
+
+    def close(self) -> None:
+        if self._sink is not None:
+            self._sink.close()
+            self._sink = None

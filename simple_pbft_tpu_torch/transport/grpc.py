@@ -1,0 +1,281 @@
+"""gRPC transport: persistent client-streams over HTTP/2 (the DCN path).
+
+Parity target: SURVEY.md §2.3's build target — "replica⇄replica control
+plane over gRPC/DCN" — replacing the reference's one-HTTP-POST-per-message
+transport (node.go:101-129, consensusInterface.go:29-44). Design:
+
+- One ``Relay/Stream`` client-streaming RPC per peer direction: the
+  sender holds the stream open and writes length-delimited frames; gRPC
+  owns connection management, reconnection, and HTTP/2 flow control
+  (the things transport/tcp.py hand-rolls). Per-message overhead is one
+  HTTP/2 DATA frame + the 5-byte gRPC prefix — no per-message headers.
+- No protobuf codegen: messages are the same canonical signed JSON as
+  every other transport (messages.py), carried as raw bytes via a
+  generic handler. PBFT authenticates by signature, not by channel, so
+  the transport adds no identity layer.
+- Fire-and-forget semantics with the same bounded outbox / bounded recv
+  buffer / drop-and-let-PBFT-retransmit behavior as TcpTransport — the
+  replica runtime cannot tell the two deployments apart.
+
+Interchangeable with TcpTransport behind transport/base.py's protocol;
+selected by ``--transport grpc`` on node.py / client_cli.py / launch.py.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import AsyncIterator, Dict, Iterable, Optional, Tuple
+
+import grpc
+import grpc.aio
+
+from .. import trace
+from .base import WireAccounting, base_metrics
+from .tcp import MAX_FRAME, OUTBOX_DEPTH, RECV_BUFFER_BYTES
+
+log = logging.getLogger("pbft.grpc")
+
+_SERVICE = "simplepbft.Relay"
+_METHOD = f"/{_SERVICE}/Stream"
+
+# Raw-bytes (de)serializers: the wire body is already canonical JSON.
+_ident = lambda b: b  # noqa: E731
+
+_COMMON_OPTIONS = [
+    ("grpc.max_send_message_length", MAX_FRAME),
+    ("grpc.max_receive_message_length", MAX_FRAME),
+    # Consensus traffic is latency-sensitive and self-retransmitting:
+    # fail fast and keep the transport's own backoff in charge.
+    ("grpc.enable_retries", 0),
+]
+_CHANNEL_OPTIONS = _COMMON_OPTIONS + [
+    ("grpc.keepalive_time_ms", 10_000),
+    ("grpc.keepalive_permit_without_calls", 1),
+]
+_SERVER_OPTIONS = _COMMON_OPTIONS + [
+    # accept the clients' 10 s keepalives on idle streams: without these
+    # the server's default ping-strike policy (2 strikes, 5 min min
+    # interval) GOAWAYs every quiet connection ~30 s into an idle period
+    ("grpc.http2.min_recv_ping_interval_without_data_ms", 9_000),
+    ("grpc.http2.max_ping_strikes", 0),
+    ("grpc.keepalive_permit_without_calls", 1),
+]
+
+
+class GrpcTransport:
+    """One node's gRPC endpoint: an aio server + per-peer stream senders.
+
+    Same construction surface as TcpTransport: ``peers`` maps node_id ->
+    (host, port); inbound frames from any stream land in one recv queue.
+    """
+
+    def __init__(
+        self,
+        node_id: str,
+        listen_addr: Tuple[str, int],
+        peers: Dict[str, Tuple[str, int]],
+        recv_depth: int = 65536,
+    ) -> None:
+        self.node_id = node_id
+        self.listen_addr = listen_addr
+        self.peers = peers
+        self._recv_q: asyncio.Queue = asyncio.Queue(maxsize=recv_depth)
+        self._recv_bytes = 0
+        self._outboxes: Dict[str, asyncio.Queue] = {}
+        self._sender_tasks: Dict[str, asyncio.Task] = {}
+        self._channels: Dict[str, grpc.aio.Channel] = {}
+        self._server: Optional[grpc.aio.Server] = None
+        self._bound_port: Optional[int] = None
+        # shared schema (transport.base.COUNTER_SCHEMA): frames_dropped/
+        # frames_requeued stay zero here — gRPC owns the stream, so a
+        # frame yielded to a broken stream is retried by wait_for_ready
+        # rather than individually tracked
+        self.metrics: Dict[str, int] = base_metrics()
+        # per-link per-kind msgs+bytes accounting
+        self.wire = WireAccounting(node_id)
+
+    # -- lifecycle ------------------------------------------------------
+
+    async def start(self) -> None:
+        server = grpc.aio.server(options=_SERVER_OPTIONS)
+        handler = grpc.method_handlers_generic_handler(
+            _SERVICE,
+            {
+                "Stream": grpc.stream_unary_rpc_method_handler(
+                    self._on_stream,
+                    request_deserializer=_ident,
+                    response_serializer=_ident,
+                )
+            },
+        )
+        server.add_generic_rpc_handlers((handler,))
+        host, port = self.listen_addr
+        bound = server.add_insecure_port(f"{host}:{port}")
+        if bound == 0:  # grpc signals bind failure by returning port 0
+            raise OSError(
+                f"{self.node_id}: cannot bind gRPC listener on {host}:{port}"
+            )
+        self._bound_port = bound
+        await server.start()
+        self._server = server
+
+    async def stop(self) -> None:
+        for task in self._sender_tasks.values():
+            task.cancel()
+        for task in self._sender_tasks.values():
+            try:
+                await task
+            except (asyncio.CancelledError, Exception):
+                pass
+        self._sender_tasks.clear()
+        for ch in self._channels.values():
+            await ch.close()
+        self._channels.clear()
+        if self._server is not None:
+            # grace=None cancels in-flight streams immediately — inbound
+            # handlers sit blocked in request-iterator reads otherwise.
+            await self._server.stop(grace=None)
+            self._server = None
+
+    @property
+    def bound_port(self) -> int:
+        """Actual listening port (when constructed with port 0)."""
+        if self._bound_port is None:
+            raise RuntimeError("transport not started")
+        return self._bound_port
+
+    # -- inbound --------------------------------------------------------
+
+    async def _on_stream(self, request_iterator, context) -> bytes:
+        """One peer's inbound stream: enqueue every frame until it ends."""
+        try:
+            async for raw in request_iterator:
+                if not raw or len(raw) + self._recv_bytes > RECV_BUFFER_BYTES:
+                    self.metrics["dropped_recv"] += 1
+                    self.wire.account_lost("dropped_recv", raw)
+                    continue
+                self.metrics["recv"] += 1
+                try:
+                    self._recv_q.put_nowait(raw)
+                    self._recv_bytes += len(raw)
+                    self.wire.account_recv(raw)
+                except asyncio.QueueFull:
+                    self.metrics["dropped_recv"] += 1
+                    self.wire.account_lost("dropped_recv", raw)
+        except asyncio.CancelledError:
+            # server.stop(grace=None) at shutdown: end the RPC quietly
+            # instead of letting grpc log an unhandled-cancellation error
+            pass
+        return b""
+
+    # -- outbound -------------------------------------------------------
+
+    def _outbox(self, dest: str) -> asyncio.Queue:
+        q = self._outboxes.get(dest)
+        if q is None:
+            q = asyncio.Queue(maxsize=OUTBOX_DEPTH)
+            self._outboxes[dest] = q
+            self._sender_tasks[dest] = asyncio.get_running_loop().create_task(
+                self._sender_loop(dest, q)
+            )
+        return q
+
+    async def _sender_loop(self, dest: str, q: asyncio.Queue) -> None:
+        """Own the stream to one peer: the RPC stays open for the peer's
+        lifetime; a failed call (peer down/restarted) is retried with
+        backoff while stale frames beyond half an outbox are dropped —
+        fire-and-forget, PBFT retransmission recovers."""
+        host, port = self.peers[dest]
+        channel = grpc.aio.insecure_channel(
+            f"{host}:{port}", options=_CHANNEL_OPTIONS
+        )
+        self._channels[dest] = channel
+        stub = channel.stream_unary(
+            _METHOD, request_serializer=_ident, response_deserializer=_ident
+        )
+        backoff = 0.05
+
+        async def frames() -> AsyncIterator[bytes]:
+            while True:
+                raw = await q.get()
+                self.metrics["sent"] += 1
+                self.wire.account_send(dest, raw)
+                yield raw
+
+        while True:
+            t_open = asyncio.get_running_loop().time()
+            try:
+                # Completes only on stream failure; frames() never ends.
+                await stub(frames(), wait_for_ready=True)
+            except asyncio.CancelledError:
+                raise
+            except grpc.aio.AioRpcError:
+                pass
+            except Exception:  # noqa: BLE001 — a dead sender task would be
+                # a permanent unlogged one-way partition; log and reconnect
+                log.exception("%s: sender stream to %s failed", self.node_id, dest)
+            self.metrics["reconnects"] += 1
+            if asyncio.get_running_loop().time() - t_open > 5.0:
+                backoff = 0.05  # the stream was healthy; this is a fresh blip
+            await asyncio.sleep(backoff)
+            backoff = min(backoff * 2, 2.0)
+            dropped = 0
+            while q.qsize() > OUTBOX_DEPTH // 2:
+                self.wire.account_lost("dropped_outbox", q.get_nowait())
+                dropped += 1
+            self.metrics["dropped_outbox"] += dropped
+
+    # -- Transport interface -------------------------------------------
+
+    async def send(self, dest: str, raw: bytes) -> None:
+        if dest == self.node_id:
+            # same byte-cap as _on_stream: un-accounted self-frames would
+            # push _recv_bytes past the cap and starve inbound peer frames
+            if len(raw) + self._recv_bytes > RECV_BUFFER_BYTES:
+                self.metrics["dropped_recv"] += 1
+                self.wire.account_lost("dropped_recv", raw)
+                return
+            try:
+                self._recv_q.put_nowait(raw)
+                self._recv_bytes += len(raw)
+                self.wire.account_send(dest, raw)
+                self.wire.account_recv(raw)
+            except asyncio.QueueFull:
+                self.metrics["dropped_recv"] += 1
+                self.wire.account_lost("dropped_recv", raw)
+            return
+        if dest not in self.peers:
+            # unknown destination: fire-and-forget, but accounted
+            self.wire.account_lost("no_route", raw)
+            return
+        if len(raw) > MAX_FRAME:
+            self.metrics["dropped_outbox"] += 1
+            self.wire.account_lost("dropped_outbox", raw)
+            return
+        try:
+            self._outbox(dest).put_nowait(raw)
+        except asyncio.QueueFull:
+            self.metrics["dropped_outbox"] += 1
+            self.wire.account_lost("dropped_outbox", raw)
+
+    async def broadcast(self, raw: bytes, dests: Iterable[str]) -> None:
+        for dest in dests:
+            if dest != self.node_id:
+                await self.send(dest, raw)
+
+    async def recv(self) -> bytes:
+        raw = await self._recv_q.get()
+        self._recv_bytes -= len(raw)
+        # trace-plane recv stamp at the dequeue seam (see tcp.py)
+        trace.recv_stamp(self.node_id, raw)
+        return raw
+
+    def recv_nowait(self) -> Optional[bytes]:
+        try:
+            raw = self._recv_q.get_nowait()
+        except asyncio.QueueEmpty:
+            return None
+        self._recv_bytes -= len(raw)
+        trace.recv_stamp(self.node_id, raw)
+        return raw

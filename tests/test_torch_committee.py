@@ -23,15 +23,19 @@ REQUESTS = [f"put k{i} v{i}" for i in range(4)]
 
 def _drive(com):
     """Submit REQUESTS in order; before stopping, wait until every replica
-    has executed them (a client returns after f+1 replies, so a slow
-    replica may still be executing the last block)."""
+    has executed them (a client may return on speculative replies, before
+    any replica has committed the last block, so equal digests alone do
+    not mean the last request executed)."""
+    expected = KVStore()
+    for op in REQUESTS:
+        expected.apply(op)
 
     async def scenario():
         com.start()
         try:
             replies = [await com.clients[0].submit(op) for op in REQUESTS]
             for _ in range(200):
-                if len({r.app.state_digest() for r in com.replicas}) == 1:
+                if {r.app.state_digest() for r in com.replicas} == {expected.state_digest()}:
                     break
                 await asyncio.sleep(0.05)
             return replies
