@@ -21,14 +21,25 @@ per phase:
               their plain PyTorch versions: exact equality in canonical
               limbs; the kernels' and the plain versions' times, and the
               bounds;
-5. verifier — a GpuVerifier over an n=64 committee + 64 clients (key
+5. modes    — the accumulate kernel's seven configurations: fused
+              windows of 4, 5 and 6 bits in dense and packed rows, and the
+              comb mode. For each, at B = 8, 512 and 8192, K1 against its
+              plain version (wire and index mode for fused, comb mode for
+              comb), exactly in canonical limbs; for comb, the verdict
+              kernel's limb entry against encode_and_compare_plain; then a
+              GpuVerifier(mode, window) verifying an 8,192-item batch with
+              seeded corruptions, its bitmap equal to the CPU oracle item
+              by item (BASELINE config 3's key population, the bench's 16
+              signers at w = 6), with the launches of that drive counted
+              per configuration; times, P and bounds at B = 8192;
+6. verifier — a GpuVerifier over an n=64 committee + 64 clients (key
               bank of 256) verifying an 8,192-item batch with seeded
               corruptions; the bitmap must equal the CPU oracle item by
               item; e2e verifies/s; the device pass's time with its split
               between the two kernels, taken by CUDA events in the same
               passes; a torch.profiler trace of one pass, which must hold
               exactly the two kernels besides copies;
-6. committee (the main path) — an n=16 (f=5) LocalCommittee whose
+7. committee (the main path) — an n=16 (f=5) LocalCommittee whose
               replicas share one VerifyService over one GpuVerifier, with
               the CPU routes turned off; 16 clients x 25 puts; every reply
               "ok", one state digest equal to a plain KVStore's, every
@@ -36,7 +47,7 @@ per phase:
               latencies from a drive without the profiler, the device's
               idle share from a second drive on a fresh committee, traced
               over its middle half;
-7. deployment (this slice's main path) — the port's launcher as a
+8. deployment (a main path) — the port's launcher as a
               subprocess: 16 replica processes (n=16, f=5) with
               --verifier gpu over TCP, each verifying through its own
               VerifyService(GpuVerifier) on the card, and one client
@@ -48,12 +59,17 @@ per phase:
               line, boot seconds, the card's memory per process, each
               node's passes, and node r0's device profile (armed with
               --device-profile) are printed;
-8. bench      — python -m simple_pbft_tpu_torch.bench (no error, on the
-              card) and python -m simple_pbft_tpu_torch.bench_consensus
-              --configs 2 --verifier gpu --seconds 10 (commits, device
-              passes);
-9. the kernels line (launches of the committee and the deployment), and
-   last the device line.
+9. bench      — python -m simple_pbft_tpu_torch.bench at its defaults
+              (fused, w = 5, dense rows), at BENCH_WINDOW=4 and at
+              BENCH_MODE=comb (no error, on the card, each line carrying
+              its mode, window and rowpack) and python -m
+              simple_pbft_tpu_torch.bench_consensus --configs 2 --verifier
+              gpu --seconds 10 (commits, device passes);
+10. the kernels line (launches of the committee, the deployment and the
+   modes phase's verifier drives; each kernel's `configs` map), and last
+   the device line.
+
+Every phase prints its seconds (`phase_seconds` of the `done` line).
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result.
@@ -82,7 +98,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 # is assumed to issue as fast as an int32 one, which keeps the bound low
 INT32_OPS_PER_SM_CLOCK = 64
 BOOST_HZ = 1.98e9  # H100 SXM maximum SM clock
-ROW_PAYLOAD_BYTES = 3 * 17 * 4  # 204 of a row's 256 bytes are limbs
+ROW_PAYLOAD_BYTES = 3 * 17 * 4  # 204 of a dense row's 256 bytes are limbs
+PACKED_PAYLOAD_BYTES = 3 * 9 * 4  # 108 of a packed row's 128 bytes
 WIDE_PRODUCTS_PER_MUL = 100  # a radix-2^25.5 field multiply: 10 x 10 products
 FIELD_MULS_PER_MADD = 7  # the mixed add's doubling of Z is an add here
 LEGACY_MULS_PER_MADD = 7 * 17 * 17 + 17  # the 17 x 15 count (slice 1's bound)
@@ -94,6 +111,8 @@ TAIL_MULS_PER_LANE = 3 + 2
 CHAIN_SQUARES, CHAIN_MULS, CHAIN_WIDTH = 254, 11, 128
 # X, Y and Z of the accumulator (T is not read), R, precheck, verdict
 TAIL_BYTES_PER_LANE = 3 * 17 * 4 + 32 + 1 + 1
+# the comb path's R: 17 limbs and a sign, int32
+LIMB_TAIL_BYTES_PER_LANE = 3 * 17 * 4 + 17 * 4 + 4 + 1 + 1
 
 
 def emit(phase, **kw):
@@ -189,31 +208,37 @@ def _bound(nbytes, products, device):
     }
 
 
-def accumulate_bound(idx, input_bytes):
-    """Least time for the accumulate on this input. Rows count once per
-    distinct row the input touches; `input_bytes` is what the mode reads
-    besides the rows (the indices, or the wire scalars and key rows)."""
+def accumulate_bound(idx, input_bytes, payload=ROW_PAYLOAD_BYTES):
+    """Least time for the accumulate on this input. `idx` is the (npos, B)
+    row indices, or a list of them, one for each table (the comb's two
+    streams): every row is one mixed add, and rows count once per distinct
+    row the input touches, at `payload` bytes (204 dense, 108 packed);
+    `input_bytes` is what the mode reads besides the rows (the indices,
+    the wire scalars and key rows, or the nibbles and row bases)."""
     import torch
 
-    npos, batch = idx.shape
-    distinct = torch.unique(idx).numel()
-    nbytes = input_bytes + distinct * ROW_PAYLOAD_BYTES + 4 * 17 * batch * 4
+    streams = idx if isinstance(idx, list) else [idx]
+    batch = streams[0].shape[1]
+    madds = sum(t.numel() for t in streams)
+    distinct = sum(torch.unique(t).numel() for t in streams)
+    nbytes = input_bytes + distinct * payload + 4 * 17 * batch * 4
     return {
-        **_bound(nbytes, batch * npos * FIELD_MULS_PER_MADD * WIDE_PRODUCTS_PER_MUL, idx.device),
+        **_bound(nbytes, madds * FIELD_MULS_PER_MADD * WIDE_PRODUCTS_PER_MUL, streams[0].device),
         "distinct_rows": distinct,
-        "legacy_int32_muls": batch * npos * LEGACY_MULS_PER_MADD,
+        "legacy_int32_muls": madds * LEGACY_MULS_PER_MADD,
     }
 
 
-def tail_bound(batch, device):
+def tail_bound(batch, device, lane_bytes=TAIL_BYTES_PER_LANE):
     """Least time for the verdict tail: the JAX function's work (batch
-    inversion) and bytes. `design_products` is what the per-lane
-    inversion spends instead."""
+    inversion) and bytes (`lane_bytes` a lane: R as wire bytes, or as the
+    comb path's limbs). `design_products` is what the per-lane inversion
+    spends instead."""
     chains = -(-batch // CHAIN_WIDTH)
     products = ((batch * TAIL_MULS_PER_LANE + chains * CHAIN_MULS) * WIDE_PRODUCTS_PER_MUL
                 + chains * CHAIN_SQUARES * SQ_PRODUCTS)
     return {
-        **_bound(batch * TAIL_BYTES_PER_LANE, products, device),
+        **_bound(batch * lane_bytes, products, device),
         "design_products": batch * (CHAIN_SQUARES * SQ_PRODUCTS
                                     + (CHAIN_MULS + 2) * WIDE_PRODUCTS_PER_MUL),
     }
@@ -261,10 +286,11 @@ def phase_field():
     emit("field", edge_values=len(edge), **rows)
 
 
-def parts_sweep_ms(wire, a_idx, f_flat):
+def parts_sweep_ms(wire, a_idx, f_flat, wbits=4):
     """K1 in wire mode at every P, through the library's C entry (these
     launches are outside the wrapper and its count): how the wrapper's
-    choice of P compares."""
+    choice of P compares. The rows' layout is the active one; P need not
+    divide the positions."""
     import torch
 
     from simple_pbft_tpu_torch.ops import comb
@@ -276,8 +302,9 @@ def parts_sweep_ms(wire, a_idx, f_flat):
 
     def launch(log2_parts):
         rc = lib.fused_accumulate_launch(
-            None, wire.data_ptr(), a_idx.data_ptr(), f_flat.data_ptr(), out.data_ptr(),
-            comb.NPOS, batch, log2_parts, f_flat.shape[0], stream)
+            comb.accumulate_kernel.MODES["wire"], int(comb.PACKED), None, wire.data_ptr(),
+            a_idx.data_ptr(), None, None, f_flat.data_ptr(), f_flat.shape[0], None, 0,
+            out.data_ptr(), comb.npos_for(wbits), batch, log2_parts, wbits, stream)
         check(rc == 0, f"sweep launch failed: {rc}")
 
     return {str(1 << lp): cuda_ms(lambda: launch(lp), 10, 2) for lp in range(5)}
@@ -407,34 +434,253 @@ def _corrupt(items, rng, count):
     return items, sorted(int(p) for p in pos)
 
 
-def phase_verifier():
+_POPULATIONS = {}
+
+
+def _population(name):
+    """One key population's 8,192-item batch: 1,024 signed messages tiled
+    8x with 200 seeded corruptions, and the CPU oracle's bitmap. "config3"
+    is BASELINE config 3's n = 64 committee and 64 clients (128 keys);
+    "bench16" the bench's 16 signers (BASELINE config 2). Signed once a
+    run. -> (pubkeys, items, bad positions, oracle, sign_s)."""
+    if name not in _POPULATIONS:
+        import numpy as np
+
+        from simple_pbft_tpu_torch.config import make_test_committee
+        from simple_pbft_tpu_torch.crypto import ed25519_cpu as ref
+        from simple_pbft_tpu_torch.crypto.verifier import (
+            BatchItem,
+            kernel_equivalent_cpu_verifier,
+        )
+
+        if name == "config3":
+            _, keys = make_test_committee(n=64, clients=64)
+            signers = [(kp.pub, kp.seed) for _, kp in sorted(keys.items())]
+            tag = b"chip smoke vote %d"
+        else:
+            signers = [(ref.public_key(bytes([i]) * 32), bytes([i]) * 32) for i in range(16)]
+            tag = b"bench vote %d"
+        t0 = time.perf_counter()
+        signed = []
+        for i in range(1024):
+            pub, seed = signers[i % len(signers)]
+            msg = tag % i
+            signed.append(BatchItem(pub, msg, ref.sign(seed, msg)))
+        sign_s = time.perf_counter() - t0
+        items, bad = _corrupt(signed * 8, np.random.default_rng(7), 200)
+        oracle = kernel_equivalent_cpu_verifier().verify_batch(items)
+        check(sum(oracle) == len(items) - len(bad), "oracle rejected an honest item")
+        _POPULATIONS[name] = ([p for p, _ in signers], items, bad, oracle, sign_s)
+    return _POPULATIONS[name]
+
+
+# (mode, window bits, packed rows): the accumulate kernel's configurations
+MODE_CONFIGS = [("fused", w, packed) for w in (4, 5, 6) for packed in (False, True)]
+MODE_CONFIGS.append(("comb", 4, False))
+MODE_BATCHES = (8, 512, 8192)
+
+
+def _register(verifier, pubkeys):
+    """Build the population's tables on 8 threads (the native table build
+    runs outside the GIL); the bank's lookup is thread-safe."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(verifier._bank.lookup, pubkeys))
+
+
+def _max_err(got, want):
+    return int((got.reshape(want.shape).long() - want.long()).abs().max().item())
+
+
+def _mode_kernels(mode, wbits, verifier, seed):
+    """K1 (and for comb the verdict kernel's limb entry) against the plain
+    versions at every batch of MODE_BATCHES on the verifier's tables,
+    exactly in canonical limbs; times and bounds at the largest."""
     import numpy as np
     import torch
 
-    from simple_pbft_tpu_torch.config import make_test_committee
-    from simple_pbft_tpu_torch.crypto import ed25519_cpu as ref
-    from simple_pbft_tpu_torch.crypto.gpu_verifier import GpuVerifier, prepare_wire_batch
-    from simple_pbft_tpu_torch.crypto.verifier import BatchItem, kernel_equivalent_cpu_verifier
     from simple_pbft_tpu_torch.ops import comb
 
-    _, keys = make_test_committee(n=64, clients=64)
-    pairs = sorted(keys.items())
+    dev = verifier.device
+    k1 = comb.accumulate_kernel
+    tables = verifier._bank.device_tables()
+    n_keys = len(verifier._bank._index)
+    payload = PACKED_PAYLOAD_BYTES if comb.PACKED else ROW_PAYLOAD_BYTES
+    npos = comb.NPOS if mode == "comb" else comb.npos_for(wbits)
+    rng = np.random.default_rng(seed)
+    rows = {}
+    for batch in MODE_BATCHES:
+        parts = k1.parts_for(batch, dev, npos)
+        keys = torch.from_numpy(rng.integers(0, n_keys, batch).astype(np.int32)).to(dev)
+        row = {"parts": parts}
+        if mode == "fused":
+            wire_np = rng.integers(0, 256, (batch, 96), dtype=np.uint8)
+            wire_np[0, :64] = 0xFF  # byte 32 of S and of k set: the top window's cut
+            wire = torch.from_numpy(wire_np).to(dev)
+            idx = comb.wire_index_plain(wire, keys, 1 << wbits)
+            want = canonical_point(comb.madd_loop_plain(idx, tables, parts=parts))
+            got_w = k1.wire(wire, keys, tables, window=1 << wbits)
+            got_i = k1(idx.contiguous(), tables)
+            torch.cuda.synchronize()
+            row["wire"] = {"max_abs_err": _max_err(got_w, want)}
+            row["index"] = {"max_abs_err": _max_err(got_i, want)}
+            check(row["wire"]["max_abs_err"] == 0 and row["index"]["max_abs_err"] == 0,
+                  f"{verifier.config}: K1 != plain at B={batch}: {row}")
+            if batch == MODE_BATCHES[-1]:
+                row["wire"].update(
+                    kernel_ms=cuda_ms(lambda: k1.wire(wire, keys, tables, window=1 << wbits),
+                                      20, 3),
+                    plain_ms=cuda_ms(lambda: comb.madd_loop_plain(
+                        comb.wire_index_plain(wire, keys, 1 << wbits), tables, parts=parts),
+                        2, 1),
+                    **accumulate_bound(idx, batch * (64 + 4), payload),
+                    parts_sweep_ms=parts_sweep_ms(wire, keys, tables, wbits))
+                row["index"].update(
+                    kernel_ms=cuda_ms(lambda: k1(idx, tables), 20, 3),
+                    plain_ms=cuda_ms(lambda: comb.madd_loop_plain(idx, tables, parts=parts),
+                                     2, 1),
+                    **accumulate_bound(idx, idx.numel() * 4, payload))
+            rows[batch] = row
+            continue
+        b_flat = comb.base_table_device(dev)
+        s = torch.from_numpy(rng.integers(0, 16, (comb.NPOS, batch), dtype=np.int32)).to(dev)
+        k = torch.from_numpy(rng.integers(0, 16, (comb.NPOS, batch), dtype=np.int32)).to(dev)
+        base = keys * (comb.NPOS * comb.WINDOW)
+        want = canonical_point(comb.comb_accumulate_plain(s, k, base, tables, b_flat,
+                                                          parts=parts))
+        acc = k1.comb(s, k, base, tables, b_flat)
+        torch.cuda.synchronize()
+        row["comb"] = {"max_abs_err": _max_err(acc, want)}
+        check(row["comb"]["max_abs_err"] == 0, f"comb: K1 != plain at B={batch}")
+        # the limb entry: every fourth lane's R is its own point's encoding
+        p = acc.reshape(4, 17, batch)
+        r_y = torch.from_numpy(rng.integers(0, 1 << 15, (17, batch), dtype=np.int32)).to(dev)
+        r_sign = torch.from_numpy(rng.integers(0, 2, batch).astype(np.int32)).to(dev)
+        pre = torch.from_numpy(rng.random(batch) < 0.9).to(dev)
+        _, xy = comb.encode_and_compare_plain(p, r_y, r_sign, pre, affine=True)
+        r_y[:, 0::4] = xy[17:, 0::4]
+        r_sign[0::4] = xy[0, 0::4] & 1
+        pre[0::4] = True
+        want_ok, want_xy = comb.encode_and_compare_plain(p, r_y, r_sign, pre, affine=True)
+        ok, got_xy = comb.encode_kernel.limbs(acc, r_y, r_sign, pre, affine=True)
+        torch.cuda.synchronize()
+        row["verdict_limbs"] = {"max_abs_err": _max_err(got_xy, want_xy),
+                                "matches": int(ok.sum())}
+        check(torch.equal(ok, want_ok) and row["verdict_limbs"]["max_abs_err"] == 0
+              and int(ok.sum()) > 0, f"comb: verdict limb entry != plain at B={batch}")
+        if batch == MODE_BATCHES[-1]:
+            row["comb"].update(
+                kernel_ms=cuda_ms(lambda: k1.comb(s, k, base, tables, b_flat), 20, 3),
+                plain_ms=cuda_ms(lambda: comb.comb_accumulate_plain(
+                    s, k, base, tables, b_flat, parts=parts), 2, 1),
+                **accumulate_bound(list(comb.comb_index(s, k, base)),
+                                   batch * (2 * comb.NPOS * 4 + 4), payload))
+            row["verdict_limbs"].update(
+                kernel_ms=cuda_ms(lambda: comb.encode_kernel.limbs(acc, r_y, r_sign, pre),
+                                  20, 3),
+                plain_ms=cuda_ms(lambda: comb.encode_and_compare_plain(p, r_y, r_sign, pre),
+                                 2, 1),
+                **tail_bound(batch, dev, LIMB_TAIL_BYTES_PER_LANE))
+        rows[batch] = row
+    return rows
+
+
+def _mode_drive(verifier, population):
+    """The configuration's path: GpuVerifier.verify_batch on the
+    population's 8,192 items, once for the bitmap and three times more
+    for e2e, with the kernels' counts set to 0 just before and read just
+    after; the bitmap must equal the oracle's and every call must launch
+    K1 in this configuration and the verdict kernel once."""
+    import torch
+
+    from simple_pbft_tpu_torch.ops import comb
+
+    _, items, bad, oracle, _ = _population(population)
+    entry = "limbs" if verifier.config.startswith("comb") else "wire"
+    comb.accumulate_kernel.reset_counts()
+    comb.encode_kernel.reset_counts()
+    got = verifier.verify_batch(items)
+    e2e = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        verifier.verify_batch(items)
+        e2e.append(time.perf_counter() - t0)
+    launches = {"fused_accumulate": dict(comb.accumulate_kernel.launches_by),
+                "encode_verdict": dict(comb.encode_kernel.launches_by)}
+    mismatch = [i for i, (a, b) in enumerate(zip(got, oracle)) if a != b]
+    check(not mismatch, f"{verifier.config}: bitmap != oracle at {mismatch[:10]}")
+    check(launches == {"fused_accumulate": {verifier.config: 4}, "encode_verdict": {entry: 4}},
+          f"{verifier.config}: launches {launches}, not one of each per verify of 4")
+    t0 = time.perf_counter()
+    prep, _ = verifier.prepare(items)
+    prep_s = time.perf_counter() - t0
+    arrays = [torch.from_numpy(a).to(verifier.device) for a in prep.arrays()]
+    tables = verifier._bank.device_tables()
+    return {
+        "batch": len(items), "corrupted": len(bad), "matches_oracle": True,
+        "launches": launches, "verifies_per_s_e2e": len(items) / statistics.median(e2e),
+        "host_prep_s": prep_s,
+        "device_pass_ms": cuda_ms(lambda: verifier.device_pass(arrays, tables), 5),
+    }
+
+
+def phase_modes():
+    """Every configuration of the accumulate kernel: K1 against its plain
+    version, then a GpuVerifier in that configuration on an 8,192-item
+    batch. -> {config: row}, each row's `drive` holding the launches of
+    its verifier drive."""
+    import torch
+
+    from simple_pbft_tpu_torch.crypto.gpu_verifier import GpuVerifier
+    from simple_pbft_tpu_torch.ops import comb
+
+    out = {}
+    for n, (mode, wbits, packed) in enumerate(MODE_CONFIGS):
+        t_config = time.perf_counter()
+        name = comb.config_name(mode, wbits, comb.ROW_PACKED if packed else comb.ROW_DENSE)
+        population = "bench16" if wbits == 6 else "config3"
+        pubkeys = _population(population)[0]
+        comb.use_row_packing(packed)
+        try:
+            t0 = time.perf_counter()
+            v = GpuVerifier(mode=mode, window=wbits,
+                            initial_keys=len(pubkeys) + (0 if wbits == 6 else 32))
+            _register(v, pubkeys)
+            v.warm_for_population(pubkeys, max_sweep=8192)
+            build_s = time.perf_counter() - t0
+            check(len(v._bank._index) == len(pubkeys), f"{v.config}: bank holds "
+                  f"{len(v._bank._index)} of {len(pubkeys)} keys")
+            kernels = _mode_kernels(mode, wbits, v, 4000 + n)
+            drive = _mode_drive(v, population)
+            row = {"mode": mode, "window": wbits, "rowpack": packed,
+                   "population": population, "bank_keys": len(v._bank._index),
+                   "bank_capacity": v._bank._cap, "bank_bytes": v._bank._np.nbytes,
+                   "max_keys": v._bank._max_keys, "build_and_warm_s": build_s,
+                   "by_batch": {str(b): r for b, r in kernels.items()}, "drive": drive}
+            check(v.config == name, f"{v.config} built for {name}")
+            out[name] = row
+            del v
+            torch.cuda.empty_cache()
+        finally:
+            comb.use_row_packing(False)
+        row["seconds"] = time.perf_counter() - t_config
+        emit("modes", config=name, **row)
+    return out
+
+
+def phase_verifier():
+    import torch
+
+    from simple_pbft_tpu_torch.crypto.gpu_verifier import GpuVerifier, prepare_wire_batch
+    from simple_pbft_tpu_torch.ops import comb
+
+    pubkeys, items, bad, oracle, sign_s = _population("config3")
     t0 = time.perf_counter()
     gpu = GpuVerifier(initial_keys=128 + 32)
-    gpu.warm_for_population([kp.pub for _, kp in pairs], max_sweep=8192)
+    gpu.warm_for_population(pubkeys, max_sweep=8192)
     warm_s = time.perf_counter() - t0
     check(gpu._bank._cap == 256 and len(gpu._bank._index) == 128, "bank shape")
-    t0 = time.perf_counter()
-    signed = []
-    for i in range(1024):
-        _, kp = pairs[i % len(pairs)]
-        msg = b"chip smoke vote %d" % i
-        signed.append(BatchItem(kp.pub, msg, ref.sign(kp.seed, msg)))
-    sign_s = time.perf_counter() - t0
-    rng = np.random.default_rng(7)
-    items, bad = _corrupt(signed * 8, rng, 200)
-    oracle = kernel_equivalent_cpu_verifier().verify_batch(items)
-    check(sum(oracle) == len(items) - len(bad), "oracle rejected an honest item")
     launches = comb.accumulate_kernel.launches, comb.encode_kernel.launches
     got = gpu.verify_batch(items)
     check((comb.accumulate_kernel.launches, comb.encode_kernel.launches)
@@ -606,8 +852,8 @@ def phase_committee(view_timeout):
     try:
         com = committee()
         stages_before = _stage_totals_ms()
-        comb.accumulate_kernel.launches = 0
-        comb.encode_kernel.launches = 0
+        comb.accumulate_kernel.reset_counts()
+        comb.encode_kernel.reset_counts()
         elapsed = asyncio.run(asyncio.wait_for(drive(com, latencies), 600))
         launches = {"fused_accumulate": comb.accumulate_kernel.launches,
                     "encode_verdict": comb.encode_kernel.launches}
@@ -858,22 +1104,33 @@ def _profile_summary(out_dir):
             "kernels": kernels}
 
 
-def _run_json(args, key, timeout):
-    """Run a module of the port; -> its last JSON line holding `key`."""
+def _run_json(args, key, timeout, env=None):
+    """Run a module of the port, with `env` added to the environment; ->
+    its last JSON line holding `key`."""
     proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
-                          text=True, timeout=timeout)
+                          text=True, timeout=timeout, env={**os.environ, **(env or {})})
     rec = _last_json(proc.stdout, key)
     check(proc.returncode == 0 and rec is not None,
           f"{args[0]} exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
     return rec
 
 
+# the bench's runs: its defaults (fused, w = 5, dense rows), w = 4 (the
+# number of earlier runs) and the comb mode
+BENCH_RUNS = (("default", {}), ("w4", {"BENCH_WINDOW": "4"}), ("comb", {"BENCH_MODE": "comb"}))
+
+
 def phase_bench():
-    t0 = time.perf_counter()
-    bench = _run_json(["simple_pbft_tpu_torch.bench"], "metric", 600)
-    bench_s = time.perf_counter() - t0
-    check("error" not in bench and bench["platform"] == "gpu" and bench["value"] > 0,
-          f"bench line: {bench}")
+    benches = {}
+    for name, env in BENCH_RUNS:
+        t0 = time.perf_counter()
+        bench = _run_json(["simple_pbft_tpu_torch.bench"], "metric", 600, env)
+        want = {"mode": env.get("BENCH_MODE", "fused"),
+                "window": int(env.get("BENCH_WINDOW", "5" if "BENCH_MODE" not in env else "4")),
+                "rowpack": False}
+        check("error" not in bench and bench["platform"] == "gpu" and bench["value"] > 0
+              and {k: bench.get(k) for k in want} == want, f"bench line ({name}): {bench}")
+        benches[name] = {"line": bench, "seconds": time.perf_counter() - t0}
     t0 = time.perf_counter()
     cons = _run_json(["simple_pbft_tpu_torch.bench_consensus", "--configs", "2",
                       "--verifier", "gpu", "--seconds", "10"], "committed_req_s", 600)
@@ -887,13 +1144,43 @@ def phase_bench():
             "verify_ms_mean", "svc_device_passes", "svc_device_items", "svc_cpu_passes",
             "svc_cpu_items", "svc_max_coalesced", "svc_rtt_ms_ema",
             "svc_watchdog_failovers", "svc_device_shapes")
-    emit("bench", bench=bench, bench_s=bench_s,
+    emit("bench", bench=benches,
          bench_consensus={k: cons.get(k) for k in keys}, bench_consensus_s=cons_s)
 
 
-def kernel_rows(rows, by_path):
+def _modes_launches(modes):
+    """The modes phase's launches, summed over its verifier drives."""
+    return {k: sum(sum(r["drive"]["launches"][k].values()) for r in modes.values())
+            for k in ("fused_accumulate", "encode_verdict")}
+
+
+def _accumulate_configs(modes):
+    """K1's `configs` map: each configuration at B = 8192, in the mode its
+    path runs it (wire for fused, comb for comb), and its drive's
+    launches."""
+    top = str(MODE_BATCHES[-1])
+    out = {}
+    for name, r in modes.items():
+        row = r["by_batch"][top]
+        main = row["wire"] if r["mode"] == "fused" else row["comb"]
+        errs = [v["max_abs_err"] for b in r["by_batch"].values()
+                for k, v in b.items() if k in ("wire", "index", "comb")]
+        out[name] = {
+            "batch": int(top), "parts": row["parts"], "ms": main["kernel_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "distinct_rows": main["distinct_rows"],
+            "launches": r["drive"]["launches"]["fused_accumulate"][name],
+            "max_abs_err": max(errs), "device_pass_ms": r["drive"]["device_pass_ms"],
+            "verifies_per_s_e2e": r["drive"]["verifies_per_s_e2e"],
+            **({"index_ms": row["index"]["kernel_ms"]} if r["mode"] == "fused" else {}),
+        }
+    return out
+
+
+def kernel_rows(rows, by_path, modes):
     """The kernels line: each kernel at the largest bucket, in the mode
-    the main path runs it; `launches` sums the paths' counts."""
+    the main path runs it; `launches` sums the paths' counts; `configs`
+    holds every configuration (K1) or entry (the verdict kernel)."""
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in ("fused_accumulate", "encode_verdict")}
     top = max(rows)
@@ -901,11 +1188,21 @@ def kernel_rows(rows, by_path):
     tail = rows[top]["verdict"]
     err_k1 = max(max(r["index"]["max_abs_err"], r["wire"]["max_abs_err"]) for r in rows.values())
     err_tail = max(r["verdict"]["max_abs_err"] for r in rows.values())
+    configs = _accumulate_configs(modes)
+    err_k1 = max([err_k1] + [c["max_abs_err"] for c in configs.values()])
+    comb_row = modes["comb_w4_dense"]
+    limbs = comb_row["by_batch"][str(MODE_BATCHES[-1])]["verdict_limbs"]
+    err_tail = max([err_tail] + [b["verdict_limbs"]["max_abs_err"]
+                                 for b in comb_row["by_batch"].values()])
+    entry_launches = {e: sum(r["drive"]["launches"]["encode_verdict"].get(e, 0)
+                             for r in modes.values()) for e in ("wire", "limbs")}
+    main_paths = sum(v["encode_verdict"] for p, v in by_path.items() if p != "modes")
     return [{
         "name": "fused_accumulate",
         "route": "cuda",
         "source": "simple_pbft_tpu_torch/csrc/fused_accumulate.cu",
-        "replaces": "simple_pbft_tpu/ops/comb.py:473 (_madd_loop_pallas)",
+        "replaces": "simple_pbft_tpu/ops/comb.py:473 (_madd_loop_pallas); comb mode: "
+                    ":355 (comb_accumulate), XLA",
         "launches": launches["fused_accumulate"],
         "launches_by_path": {p: v["fused_accumulate"] for p, v in by_path.items()},
         "max_abs_err": err_k1,
@@ -917,6 +1214,7 @@ def kernel_rows(rows, by_path):
         "bound_by": k1["bound_by"],
         "library_ms": None,
         "library": "none: no PyTorch call computes it",
+        "configs": configs,
     }, {
         "name": "encode_verdict",
         "route": "cuda",
@@ -933,6 +1231,14 @@ def kernel_rows(rows, by_path):
         "bound_by": tail["bound_by"],
         "library_ms": None,
         "library": "none: no PyTorch call computes it",
+        "configs": {
+            "wire": {"batch": top, "ms": tail["kernel_ms"], "plain_ms": tail["plain_ms"],
+                     "bound_ms": tail["bound_ms"], "bound_by": tail["bound_by"],
+                     "launches": main_paths + entry_launches["wire"]},
+            "limbs": {"batch": MODE_BATCHES[-1], "ms": limbs["kernel_ms"],
+                      "plain_ms": limbs["plain_ms"], "bound_ms": limbs["bound_ms"],
+                      "bound_by": limbs["bound_by"], "launches": entry_launches["limbs"]},
+        },
     }]
 
 
@@ -953,16 +1259,28 @@ def main(argv=None):
 
     name = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    phase_device()
-    phase_build()
-    phase_field()
-    rows = phase_kernel()
-    phase_verifier()
-    by_path = {"committee": phase_committee(args.view_timeout)}
-    by_path["deployment"] = phase_deployment()
-    phase_bench()
-    emit("done", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": kernel_rows(rows, by_path)}), flush=True)
+    seconds = {}
+
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[phase] = time.perf_counter() - t0
+        return out
+
+    timed("device", phase_device)
+    timed("build", phase_build)
+    timed("field", phase_field)
+    rows = timed("kernel", phase_kernel)
+    modes = timed("modes", phase_modes)
+    timed("verifier", phase_verifier)
+    by_path = {"committee": timed("committee", phase_committee, args.view_timeout)}
+    by_path["deployment"] = timed("deployment", phase_deployment)
+    by_path["modes"] = _modes_launches(modes)
+    for kernel, count in by_path["modes"].items():
+        check(count > 0, f"the modes phase's drives never launched {kernel}")
+    timed("bench", phase_bench)
+    emit("done", seconds=time.perf_counter() - t_start, phase_seconds=seconds)
+    print(json.dumps({"kernels": kernel_rows(rows, by_path, modes)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

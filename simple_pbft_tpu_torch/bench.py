@@ -12,18 +12,24 @@ rate measured so far is reported, 0.0 if none). The exit code is 0 only
 when the line carries no error.
 
 Methodology: sign a small set of distinct messages (pure-Python RFC 8032),
-tile them to the batch, stage the wire arrays on the card, then time
-steady-state device passes (`comb.fused_verify_wire_kernel`, the two CUDA
+tile them to the batch, stage the batch's arrays on the card, then time
+steady-state device passes (`GpuVerifier.device_pass`: the two CUDA
 kernels) between CUDA events. A small batch runs first, so a failing
-kernel fails fast. Host prep (`prepare_wire_batch`) is timed apart and
+kernel fails fast. Host prep (`GpuVerifier.prepare`: `prepare_wire_batch`
+in fused mode, `prepare_comb_batch` in comb mode) is timed apart and
 reported as `host_prep_ms` per top batch. `e2e_verifies_per_sec` is the
 whole `GpuVerifier.verify_batch` path (host prep, copies, the pass, the
 verdicts back); `e2e_pipelined_verifies_per_sec` dispatches batch k+1
 before it waits for batch k, the overlap the verify service gets.
 
-Env knobs: BENCH_BATCH (top batch, rounded up to a bucket, at most 8192),
-BENCH_SIGNERS (distinct signing keys, default 16 — BASELINE config 2's
-committee), BENCH_TIMEOUT (wall-clock budget in seconds, default 420).
+Env knobs, with the JAX package's bench.py defaults: BENCH_MODE (fused or
+comb, default fused), BENCH_WINDOW (4, 5 or 6 bits, default 5; comb mode
+is fixed at 4), BENCH_ROWPACK (1: packed 128-byte table rows, fused mode
+only; default 0, dense 256-byte rows). Also BENCH_BATCH (top batch,
+rounded up to a bucket, at most 8192), BENCH_SIGNERS (distinct signing
+keys, default 16 — BASELINE config 2's committee), BENCH_TIMEOUT
+(wall-clock budget in seconds, default 420). The JSON line carries
+`mode`, `window` and `rowpack`.
 ``--smoke`` runs a batch of 32 on the CPU (``device="cpu"``), the
 kernels' plain versions, in seconds. Without it the bench runs on CUDA
 and reports an error when there is none.
@@ -136,21 +142,24 @@ def run(record: _Record, smoke: bool, budget: float) -> dict:
     import torch
 
     from .crypto import ed25519_cpu as ref
-    from .crypto.gpu_verifier import (
-        BUCKETS,
-        WINDOW_BITS,
-        GpuVerifier,
-        _bucket_size,
-        prepare_wire_batch,
-    )
+    from .crypto.gpu_verifier import BUCKETS, GpuVerifier, _bucket_size
     from .crypto.verifier import BatchItem
     from .ops import comb
 
-    verifier = GpuVerifier(device="cpu" if smoke else "cuda")
+    mode = os.environ.get("BENCH_MODE", "fused")
+    if mode not in ("fused", "comb"):
+        raise ValueError(f"BENCH_MODE must be fused|comb, got {mode!r}")
+    # comb mode is fixed at 4-bit windows and dense rows: report what runs
+    wbits = int(os.environ.get("BENCH_WINDOW", "5")) if mode == "fused" else 4
+    rowpack = mode == "fused" and os.environ.get("BENCH_ROWPACK", "0") == "1"
+    # the layout switch precedes every bank
+    comb.use_row_packing(rowpack)
+    record.sticky.update(mode=mode, window=wbits, rowpack=rowpack,
+                         staging="wire" if mode == "fused" else "comb")
+    verifier = GpuVerifier(device="cpu" if smoke else "cuda", mode=mode, window=wbits)
     device = verifier.device
     platform = "gpu" if device.type == "cuda" else "cpu"
-    record.sticky.update(platform=platform, mode="fused", window=WINDOW_BITS,
-                         staging="wire")
+    record.sticky.update(platform=platform, config=verifier.config)
     if platform == "gpu":
         record.sticky.update(_card_facts())
     top = min(_bucket_size(int(os.environ.get("BENCH_BATCH", "32" if smoke else "8192"))),
@@ -165,7 +174,7 @@ def run(record: _Record, smoke: bool, budget: float) -> dict:
         items.append(BatchItem(ref.public_key(seed), msg, ref.sign(seed, msg)))
 
     bank = verifier._bank
-    record.best["note"] = f"building key tables ({n_signers} keys)"
+    record.best["note"] = f"building {verifier.config} key tables ({n_signers} keys)"
     t0 = time.perf_counter()
     for it in items:
         bank.lookup(it.pubkey)  # the table build is one-time per key
@@ -173,15 +182,15 @@ def run(record: _Record, smoke: bool, budget: float) -> dict:
 
     # host prep, measured WARM at the top batch (what a replica pays)
     items_top = _tile(items, top)
-    prepare_wire_batch(items_top, bank)
+    verifier.prepare(items_top)
     t0 = time.perf_counter()
     for _ in range(3):
-        prepare_wire_batch(items_top, bank)
+        verifier.prepare(items_top)
     host_prep_ms = (time.perf_counter() - t0) / 3 * 1e3
     tables = bank.device_tables()
 
     def staged(batch: int):
-        prep, _ = prepare_wire_batch(_tile(items, batch), bank)
+        prep, _ = verifier.prepare(_tile(items, batch))
         return [torch.from_numpy(a).to(device) for a in prep.arrays()]
 
     best_note = record.best["note"]
@@ -190,10 +199,10 @@ def run(record: _Record, smoke: bool, budget: float) -> dict:
         if time.perf_counter() - t_start > 0.75 * budget and record.best["batch"]:
             best_note += f"; skipped batch>={batch} (time budget)"
             break
-        wire, a_idx, pre = staged(batch)
+        arrays = staged(batch)
 
         def fn():
-            return comb.fused_verify_wire_kernel(wire, a_idx, tables, pre)
+            return verifier.device_pass(arrays, tables)
 
         record.best["note"] = f"first pass at batch={batch} on {platform}; best: {best_note}"
         if not bool(fn().all()):

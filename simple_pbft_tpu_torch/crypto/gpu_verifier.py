@@ -1,7 +1,9 @@
 """Batched Ed25519 verification on a CUDA device — the port's verify path.
 
 The counterpart of the JAX package's ``crypto/tpu_verifier.py`` in its
-shipped default, the fused comb engine with 4-bit windows:
+fused and comb modes: the fused comb engine with 4-, 5- or 6-bit windows
+(4 is the default) over dense or packed table rows (`comb.use_row_packing`),
+or the separate-table comb with 4-bit windows:
 
 - The consensus plane drains every pending (pubkey, message, signature)
   tuple into one batch.
@@ -9,10 +11,12 @@ shipped default, the fused comb engine with 4-bit windows:
   frombuffer per batch), the challenge scalars k = SHA-512(R||A||M) mod L
   come from the native batch hasher, and the S >= L / R.y >= p prechecks
   are numpy compares. The device receives ~100 raw bytes per item.
-- One device pass per batch (ops/comb.fused_verify_wire_kernel): on a
-  CUDA device two hand-written kernels, the accumulate kernel in wire
-  mode (window extraction, row gather, the 64 mixed adds) and the
-  verdict kernel (per-lane inversion, encoding, comparison).
+- One device pass per batch (ops/comb.fused_verify_wire_kernel, or
+  comb_verify_kernel in comb mode): on a CUDA device two hand-written
+  kernels, the accumulate kernel (in wire mode: window extraction, row
+  gather, the mixed adds; in comb mode the same over two tables, from
+  nibbles the host extracts) and the verdict kernel (per-lane inversion,
+  encoding, comparison).
 - Batches are padded to bucketed sizes (powers of two), so a device pass
   sees a handful of shapes; the verdict bitmap maps back per item, so
   one bad signature never poisons a quorum.
@@ -21,7 +25,8 @@ Verification equation (cofactorless, RFC 8032 permits): [S]B == R + [k]A,
 rearranged to [S]B + [k](−A) == R.
 
 The verifier runs on CUDA unless constructed with ``device="cpu"`` (the
-tests do); without a CUDA device it raises instead of falling back.
+tests do); without a CUDA device it raises instead of falling back. The
+ladder mode of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 
 from .. import native, resolve_device
 from ..ops import comb
+from ..ops import field25519 as fe
 from . import ed25519_cpu as ref
 from .verifier import BatchItem
 
@@ -45,7 +51,7 @@ log = logging.getLogger(__name__)
 # Bucketed batch sizes: drained pools are padded up to the next bucket.
 BUCKETS = (8, 32, 128, 512, 2048, 8192)
 
-WINDOW_BITS = 4  # the fused w=4 comb: 64 positions, 4 MiB per key
+WINDOW_BITS = 4  # the default window: the fused w=4 comb, 64 positions
 
 _L_BYTES = ref.L.to_bytes(32, "little")
 
@@ -126,17 +132,21 @@ def _table_budget_bytes(device: torch.device) -> int:
 
 
 class KeyBank:
-    """Cache of per-pubkey fused comb tables (the committee's key set).
+    """Cache of per-pubkey comb tables (the committee's key set).
 
     PBFT pubkeys are few and endlessly reused, so each is decompressed and
-    expanded into dense Niels rows once on the host and kept on the
-    verifier's device. The bank's capacity grows in powers of two.
+    expanded into Niels rows once on the host and kept on the verifier's
+    device. The bank's capacity grows in powers of two. In fused mode a
+    key's table has npos_for(window) * 4^window rows, in comb mode
+    NPOS * WINDOW; the row width is `comb.ROW` as it stands when the bank
+    is built (dense or packed), and stays so.
 
     `max_keys` bounds the bank: a Byzantine sender must not be able to
     grow device memory by spraying fresh valid curve points through the
     Verifier seam. The default is a quarter of the device's memory
-    (`_table_budget_bytes`) over the 4 MiB of one key's table. Keys beyond
-    the cap report UNCACHED and are verified on the CPU fallback path.
+    (`_table_budget_bytes`) over the bytes of one key's table in this mode,
+    window and layout. Keys beyond the cap report UNCACHED and are
+    verified on the CPU fallback path.
     """
 
     UNCACHED = -2
@@ -146,11 +156,25 @@ class KeyBank:
         initial_capacity: int = 8,
         max_keys: Optional[int] = None,
         device="cuda",
+        mode: str = "fused",
+        window: int = WINDOW_BITS,
     ):
-        self.window = WINDOW_BITS
+        if mode not in ("comb", "fused"):
+            raise ValueError(f"mode must be comb|fused, got {mode!r}")
+        if window not in (4, 5, 6):
+            raise ValueError(f"window must be 4|5|6, got {window!r}")
+        if mode == "comb" and window != 4:
+            raise ValueError("comb mode is fixed at 4-bit windows")
+        self.window = window
         self.device = resolve_device(device)
-        self._rows_per_key = comb.npos_for(WINDOW_BITS) * (1 << (2 * WINDOW_BITS))
-        key_bytes = self._rows_per_key * comb.ROW * 4
+        self.row = comb.ROW
+        if mode == "comb":
+            self._make_table = comb.comb_table_np
+            self._rows_per_key = comb.NPOS * comb.WINDOW
+        else:
+            self._make_table = lambda pt: comb.fused_table_np(pt, window)
+            self._rows_per_key = comb.npos_for(window) * (1 << (2 * window))
+        key_bytes = self._rows_per_key * self.row * 4
         default_max = max(8, _table_budget_bytes(self.device) // key_bytes)
         self._index: Dict[bytes, int] = {}
         self._invalid_cache: set = set()
@@ -158,7 +182,7 @@ class KeyBank:
         # clamp: capacity beyond max_keys would allocate table memory the
         # lookup path refuses to ever use
         self._cap = max(1, min(initial_capacity, self._max_keys))
-        self._np = np.zeros((self._cap, self._rows_per_key, comb.ROW), np.int32)
+        self._np = np.zeros((self._cap, self._rows_per_key, self.row), np.int32)
         self._dev: Optional[torch.Tensor] = None
         self._dirty = True
         # the replica pipeline verifies sweep k+1 in a second worker thread
@@ -174,12 +198,16 @@ class KeyBank:
         index: Dict[bytes, int],
         device="cuda",
         max_keys: Optional[int] = None,
+        mode: str = "fused",
+        window: int = WINDOW_BITS,
     ) -> "KeyBank":
-        """A bank holding `rows` ((cap, rows_per_key, 64) int32 fused w=4
-        tables) under `index` (pubkey -> row) — exactly a JAX KeyBank's
-        ``_np`` and ``_index``, so the two verify the same keys alike."""
-        bank = cls(initial_capacity=1, max_keys=max_keys, device=device)
-        want = (bank._rows_per_key, comb.ROW)
+        """A bank holding `rows` ((cap, rows_per_key, ROW) int32 tables of
+        this mode, window and the active layout) under `index` (pubkey ->
+        row) — exactly a JAX KeyBank's ``_np`` and ``_index``, so the two
+        verify the same keys alike."""
+        bank = cls(initial_capacity=1, max_keys=max_keys, device=device, mode=mode,
+                   window=window)
+        want = (bank._rows_per_key, bank.row)
         if rows.ndim != 3 or rows.shape[1:] != want or rows.dtype != np.int32:
             raise ValueError(
                 f"rows must be (cap, {want[0]}, {want[1]}) int32, got "
@@ -213,7 +241,7 @@ class KeyBank:
                 if len(self._invalid_cache) < 4096:  # bounded negative cache
                     self._invalid_cache.add(pubkey)
             return -1
-        table = comb.fused_table_np(pt, WINDOW_BITS)
+        table = self._make_table(pt)
         with self._lock:
             idx = self._index.get(pubkey)
             if idx is not None:  # raced: another thread built it first
@@ -264,10 +292,49 @@ class KeyBank:
         with self._lock:
             if self._dirty or self._dev is None:
                 self._dev = torch.from_numpy(
-                    self._np.reshape(self._cap * self._rows_per_key, comb.ROW)
+                    self._np.reshape(self._cap * self._rows_per_key, self.row)
                 ).to(self.device)
                 self._dirty = False
             return self._dev
+
+
+def _pad_batch_arrays(arrays, n: int, size: int):
+    """Zero-pad each array's TRAILING (batch) dim from n to size."""
+    if size < n:
+        raise ValueError(f"pad target {size} < batch {n}")
+    pad = size - n
+
+    def pz(a):
+        widths = [(0, 0)] * (a.ndim - 1) + [(0, pad)]
+        return np.pad(a, widths)
+
+    return tuple(pz(a) for a in arrays)
+
+
+class CombBatch:
+    """Device-ready arrays for the comb kernels (pre-padding); batch axis
+    trailing on every array."""
+
+    __slots__ = ("n", "s_nib", "k_nib", "a_idx", "r_y", "r_sign", "precheck")
+
+    def __init__(self, n, s_nib, k_nib, a_idx, r_y, r_sign, precheck):
+        self.n = n
+        self.s_nib = s_nib
+        self.k_nib = k_nib
+        self.a_idx = a_idx
+        self.r_y = r_y
+        self.r_sign = r_sign
+        self.precheck = precheck
+
+    def arrays(self):
+        return (self.s_nib, self.k_nib, self.a_idx, self.r_y, self.r_sign, self.precheck)
+
+    def padded(self, size: int) -> "CombBatch":
+        """Zero-pad every array's batch dim up to `size`; pad rows carry
+        precheck=False, so their verdicts are masked out."""
+        if size == self.n:
+            return self
+        return CombBatch(self.n, *_pad_batch_arrays(self.arrays(), self.n, size))
 
 
 class WireBatch:
@@ -314,6 +381,29 @@ def _decode_and_precheck(items: Sequence[BatchItem], bank: KeyBank):
     return s_raw, k_raw, r_raw, a_idx, ok, fallback
 
 
+def prepare_comb_batch(
+    items: Sequence[BatchItem], bank: KeyBank
+) -> "tuple[CombBatch, List[int]]":
+    """Wire bytes -> comb-kernel arrays, registering pubkeys in `bank`:
+    the scalars' windows at the bank's width, the key rows, R.y's limbs
+    and sign, and the precheck. Returns (batch, fallback): `fallback`
+    lists item positions whose pubkey is valid but over the bank's cap —
+    the caller verifies those on the CPU path (their device rows are
+    masked out)."""
+    n = len(items)
+    s_raw, k_raw, r_raw, a_idx, ok, fallback = _decode_and_precheck(items, bank)
+    batch = CombBatch(
+        n,
+        comb.windows_major_np(s_raw, bank.window),
+        comb.windows_major_np(k_raw, bank.window),
+        a_idx,
+        fe.bytes32_to_limbs_major_np(r_raw),
+        fe.sign_bits_np(r_raw),
+        ok,
+    )
+    return batch, fallback
+
+
 def prepare_wire_batch(
     items: Sequence[BatchItem], bank: KeyBank
 ) -> "tuple[WireBatch, List[int]]":
@@ -334,10 +424,15 @@ _DEVICE_LOCK = threading.Lock()
 
 
 class GpuVerifier:
-    """The `gpu` backend behind the crypto.Verifier seam: the fused comb
-    engine (cached per-pubkey dual-scalar tables, zero doublings, no
-    on-device decompression, one madd per nibble position, batch-amortized
-    inversion) on a CUDA device.
+    """The `gpu` backend behind the crypto.Verifier seam, on a CUDA device.
+
+    Default mode is the fused comb engine (cached per-pubkey dual-scalar
+    tables, zero doublings, no on-device decompression, one madd per
+    window position) with `window`-bit windows (4, 5 or 6); `mode="comb"`
+    keeps a 4-bit table of each key alone and a constant one of the base
+    point, for twice the madds. The ladder mode of the JAX package is not
+    ported yet. Table rows are dense or packed as `comb.ROW` stands when
+    the verifier is built.
 
     Pads drained batches to bucketed sizes, runs one device pass per
     chunk, and returns the per-item bitmap.
@@ -345,17 +440,35 @@ class GpuVerifier:
 
     name = "gpu"
 
-    def __init__(self, device="cuda", initial_keys: Optional[int] = None):
+    def __init__(
+        self,
+        device="cuda",
+        mode: str = "fused",
+        window: int = WINDOW_BITS,
+        initial_keys: Optional[int] = None,
+    ):
+        if mode not in ("comb", "fused", "ladder"):
+            raise ValueError(f"mode must be comb|fused|ladder, got {mode!r}")
+        if window != WINDOW_BITS and mode != "fused":
+            raise ValueError("window is a fused-mode knob")
+        if mode == "ladder":
+            raise ValueError("mode='ladder' (the keyless Straus ladder) is not ported "
+                             "yet: a later slice of the port brings it")
+        if mode == "comb" and comb.PACKED:
+            raise RuntimeError("the comb mode reads dense rows; packed rows "
+                               "(use_row_packing) only feed the fused path")
         self.device = resolve_device(device)
-        self._mode = "fused"
-        self._window = WINDOW_BITS
+        self._mode = mode
+        self._window = window
         # initial_keys sizes the bank for the EXPECTED key population
         # (committee + clients), so the table never has to be regrown
         # and re-uploaded under live traffic.
         cap = 8
         if initial_keys is not None:
             cap = 1 << max(3, int(initial_keys - 1).bit_length())
-        self._bank = KeyBank(initial_capacity=cap, device=self.device)
+        self._bank = KeyBank(initial_capacity=cap, device=self.device, mode=mode,
+                             window=window)
+        self.config = comb.config_name(mode, window, self._bank.row)
         self._cpu_fb = None  # lazy batched native verifier (over-cap keys)
         # Device-side accounting, owned by the verifier: seconds are
         # dispatch->result time of each pass, measured by the caller that
@@ -363,8 +476,8 @@ class GpuVerifier:
         self.device_calls = 0
         self.device_items = 0
         self.device_seconds = 0.0
-        # Shape accounting: a (bucket, table capacity) pair never
-        # dispatched before is a first-time shape (a fresh allocation
+        # Shape accounting: a (mode, window, bucket, table capacity) tuple
+        # never dispatched before is a first-time shape (a fresh allocation
         # pattern); after warmup declared the shape set closed it counts
         # in post_warm_compiles, which must stay 0.
         self.shape_signatures: set = set()
@@ -399,9 +512,9 @@ class GpuVerifier:
         CPU path forever."""
         if len(pubkeys) > self._bank._max_keys:
             log.warning(
-                "GpuVerifier bank clamped: %d published keys > max_keys=%d; "
-                "over-cap keys verify on the CPU fallback path",
-                len(pubkeys), self._bank._max_keys,
+                "GpuVerifier bank clamped: %d published keys > max_keys=%d "
+                "(%s); over-cap keys verify on the CPU fallback path",
+                len(pubkeys), self._bank._max_keys, self.config,
             )
         top = _bucket_size(max(1, min(max_sweep, BUCKETS[-1])))
         self.warm(pubkeys=pubkeys, buckets=[b for b in BUCKETS if b <= top])
@@ -447,6 +560,7 @@ class GpuVerifier:
         """Shape-stability counters for the telemetry plane, and each
         CUDA kernel's launches in this process since the warm ended."""
         return {
+            "config": self.config,
             "warmed": self._warm_done,
             "shape_compiles": self.shape_compiles,
             "post_warm_compiles": self.post_warm_compiles,
@@ -487,6 +601,24 @@ class GpuVerifier:
 
         return finish
 
+    def prepare(self, items: Sequence[BatchItem]):
+        """The mode's host staging: (WireBatch or CombBatch, fallback)."""
+        prepare = prepare_wire_batch if self._mode == "fused" else prepare_comb_batch
+        return prepare(items, self._bank)
+
+    def device_pass(self, arrays: List[torch.Tensor], tables: torch.Tensor) -> torch.Tensor:
+        """The mode's device pass on the staged batch's tensors (a
+        WireBatch's in fused mode, a CombBatch's in comb mode, on this
+        verifier's device) and the bank's tables -> (B,) bool."""
+        if self._mode == "fused":
+            wire, a_idx, precheck = arrays
+            return comb.fused_verify_wire_kernel(wire, a_idx, tables, precheck,
+                                                 window=1 << self._window)
+        s_nib, k_nib, a_idx, r_y, r_sign, precheck = arrays
+        return comb.comb_verify_kernel(s_nib, k_nib, a_idx, tables,
+                                       comb.base_table_device(self.device), r_y, r_sign,
+                                       precheck)
+
     def _dispatch_chunk(
         self,
         items: Sequence[BatchItem],
@@ -496,23 +628,20 @@ class GpuVerifier:
 
         t_prep = time.perf_counter()
         size = _bucket_size(len(items))
-        prep, fallback = prepare_wire_batch(items, self._bank)
+        prep, fallback = self.prepare(items)
         prep = prep.padded(size)
-        wire, a_idx, precheck = prep.arrays()
+        arrays = prep.arrays()
         tables = self._bank.device_tables()
         compile_fresh = self._record_shape(size)
         prep_s = time.perf_counter() - t_prep
         spans.record(spans.VERIFY_HOST_PREP, prep_s, n=len(items))
-        bytes_up = wire.nbytes + a_idx.nbytes + precheck.nbytes
+        bytes_up = sum(a.nbytes for a in arrays)
         queue_wait_s, submissions = annotation
         dev = self.device
         with _DEVICE_LOCK:
             t0 = time.perf_counter()
-            dev_out = comb.fused_verify_wire_kernel(
-                torch.from_numpy(wire).to(dev),
-                torch.from_numpy(a_idx).to(dev),
-                tables,
-                torch.from_numpy(precheck).to(dev),
+            dev_out = self.device_pass(
+                [torch.from_numpy(a).to(dev) for a in arrays], tables
             )  # CUDA: enqueue only
             self.device_calls += 1
             self.device_items += len(items)

@@ -9,8 +9,12 @@
 //
 // Contract (plain PyTorch version: ops/comb.py encode_and_compare_plain):
 //   acc      (4*17, B) int32  extended X, Y, Z, T in 17 x 15 limbs (weak form)
-//   wire     (B, 96) uint8    S || k || R; R.y is bytes 64..95 without bit
-//                             255, R's sign is bit 255
+//   R, by one of two entries:
+//     wire   (B, 96) uint8    S || k || R; R.y is bytes 64..95 without bit
+//                             255, R's sign is bit 255 (the fused path)
+//     r_y    (17, B) int32    R.y as 17 x 15 limbs, and
+//     r_sign (B,) int32       R's sign, as the comb path stages them
+//                             (JAX prepare_comb_batch)
 //   precheck (B,) bool        the host's validity mask
 //   verdict  (B,) bool        canonical(X/Z) parity == sign, canonical(Y/Z)
 //                             == canonical(R.y), and precheck
@@ -41,19 +45,36 @@ using fe25519::fe;
 constexpr int NL = 17;
 constexpr int WIRE = 96;
 
-// One lane: `x15`, `y15`, `z15` the accumulator's coordinates, `r` R's 32
-// bytes. Writes the canonical affine x, y as 17 x 15 limbs.
-FE_FN bool encode_verdict_lane(const int32_t x15[NL], const int32_t y15[NL],
-                               const int32_t z15[NL], const uint8_t r[32],
-                               bool precheck, int32_t x_out[NL], int32_t y_out[NL]) {
+// One lane: `x15`, `y15`, `z15` the accumulator's coordinates, `ry` R.y
+// (carried limbs), `r_sign` R's sign. Writes the canonical affine x, y as
+// 17 x 15 limbs.
+FE_FN bool verdict_lane(const int32_t x15[NL], const int32_t y15[NL], const int32_t z15[NL],
+                        const fe25519::fe& ry, int r_sign, bool precheck, int32_t x_out[NL],
+                        int32_t y_out[NL]) {
   using namespace fe25519;
   const fe zinv = fe_invert(from15(z15));
   const fe x = fe_canonical(fe_mul(from15(x15), zinv));
   const fe y = fe_canonical(fe_mul(from15(y15), zinv));
-  const fe ry = fe_canonical(from_bytes(r));
   to15(x, x_out);
   to15(y, y_out);
-  return precheck && fe_equal_canonical(y, ry) && fe_parity_canonical(x) == (r[31] >> 7);
+  return precheck && fe_equal_canonical(y, fe_canonical(ry)) &&
+         fe_parity_canonical(x) == r_sign;
+}
+
+// The fused path's lane: `r` R's 32 wire bytes.
+FE_FN bool encode_verdict_lane(const int32_t x15[NL], const int32_t y15[NL],
+                               const int32_t z15[NL], const uint8_t r[32],
+                               bool precheck, int32_t x_out[NL], int32_t y_out[NL]) {
+  return verdict_lane(x15, y15, z15, fe25519::from_bytes(r), r[31] >> 7, precheck, x_out,
+                      y_out);
+}
+
+// The comb path's lane: `ry15` R.y's 17 x 15 limbs, `r_sign` its sign.
+FE_FN bool encode_verdict_limbs_lane(const int32_t x15[NL], const int32_t y15[NL],
+                                     const int32_t z15[NL], const int32_t ry15[NL],
+                                     int r_sign, bool precheck, int32_t x_out[NL],
+                                     int32_t y_out[NL]) {
+  return verdict_lane(x15, y15, z15, fe25519::from15(ry15), r_sign, precheck, x_out, y_out);
 }
 
 }  // namespace tail
@@ -71,6 +92,17 @@ __device__ __forceinline__ void load15(const int32_t* __restrict__ acc, int q, i
                                        int lane, int32_t l[NL]) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) l[i] = __ldg(acc + (long long)(q * NL + i) * batch + lane);
+}
+
+__device__ __forceinline__ void store_affine(int32_t* __restrict__ affine, int batch,
+                                             int lane, const int32_t xo[NL],
+                                             const int32_t yo[NL]) {
+  if (affine == nullptr) return;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    affine[(long long)i * batch + lane] = xo[i];
+    affine[(long long)(NL + i) * batch + lane] = yo[i];
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -92,13 +124,26 @@ encode_verdict_kernel(const int32_t* __restrict__ acc, const uint8_t* __restrict
   for (int i = 0; i < 32; ++i) r[i] = (uint8_t)(words[i / 4] >> (8 * (i % 4)));
   int32_t xo[NL], yo[NL];
   verdict[lane] = tail::encode_verdict_lane(x15, y15, z15, r, precheck[lane], xo, yo);
-  if (affine != nullptr) {
-#pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      affine[(long long)i * batch + lane] = xo[i];
-      affine[(long long)(NL + i) * batch + lane] = yo[i];
-    }
-  }
+  store_affine(affine, batch, lane, xo, yo);
+}
+
+// The comb path's entry: R.y as (17, B) limbs and R's sign as (B,) int32.
+__global__ void __launch_bounds__(THREADS)
+encode_verdict_limbs_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ r_y,
+                            const int32_t* __restrict__ r_sign,
+                            const bool* __restrict__ precheck, bool* __restrict__ verdict,
+                            int32_t* __restrict__ affine, int batch) {
+  const int lane = blockIdx.x * THREADS + threadIdx.x;
+  if (lane >= batch) return;
+  int32_t x15[NL], y15[NL], z15[NL], ry15[NL];
+  load15(acc, 0, batch, lane, x15);
+  load15(acc, 1, batch, lane, y15);
+  load15(acc, 2, batch, lane, z15);
+  load15(r_y, 0, batch, lane, ry15);
+  int32_t xo[NL], yo[NL];
+  verdict[lane] = tail::encode_verdict_limbs_lane(x15, y15, z15, ry15, __ldg(r_sign + lane),
+                                                  precheck[lane], xo, yo);
+  store_affine(affine, batch, lane, xo, yo);
 }
 
 // Test entry for the header's arithmetic on the card: a and b are (17, n)
@@ -136,6 +181,18 @@ extern "C" int encode_verdict_launch(const int32_t* acc, const uint8_t* wire,
   const dim3 grid((batch + THREADS - 1) / THREADS);
   encode_verdict_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       acc, wire, precheck, verdict, affine, batch);
+  return (int)cudaGetLastError();
+}
+
+// The comb path's launch: R.y limbs and sign in place of the wire bytes.
+extern "C" int encode_verdict_limbs_launch(const int32_t* acc, const int32_t* r_y,
+                                           const int32_t* r_sign, const bool* precheck,
+                                           bool* verdict, int32_t* affine, int batch,
+                                           void* stream) {
+  if (batch <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((batch + THREADS - 1) / THREADS);
+  encode_verdict_limbs_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      acc, r_y, r_sign, precheck, verdict, affine, batch);
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,12 @@ are held against:
   p, 2^255-1, limbs at their weak-form maxima) and random ones;
 - `madd_loop_plain(parts=P)`, exactly after canonical reduction, for
   P in {1, 2, 4, 8, 16}, in index mode and in wire mode;
-- `wire_index_plain`, on edge bytes;
-- `encode_and_compare_plain`, verdicts and canonical affine (x, y).
+- the same at 5- and 6-bit windows (52 and 43 positions, which most P
+  do not divide), in dense and packed rows, and `comb_accumulate_plain`
+  in comb mode;
+- `wire_index_plain`, on edge bytes, at every window width;
+- `encode_and_compare_plain`, verdicts and canonical affine (x, y), with R
+  as wire bytes and as the comb path's staged limbs and sign.
 
 What only the card can show (the shuffles, cp.async, the launch) is in
 ``chip_smoke.py`` and the tests marked ``cuda``.
@@ -57,18 +61,31 @@ extern "C" void h_field_op(int op, const int32_t* a, const int32_t* b, int32_t* 
   }
 }
 
-extern "C" void h_accumulate(const int32_t* idx, const uint8_t* wire, const int32_t* a_index,
-                             const int32_t* f_flat, int32_t* out, int npos, int batch,
-                             int parts) {
+extern "C" int h_accumulate(int mode, int packed, const int32_t* idx, const uint8_t* wire,
+                            const int32_t* lane_key, const int32_t* s_win,
+                            const int32_t* k_win, const int32_t* table, long long m_rows,
+                            const int32_t* b_table, long long m_b_rows, int32_t* out,
+                            int npos, int batch, int parts, int wbits) {
   using namespace k1;
+  int lp = 0;
+  while ((1 << lp) < parts) ++lp;
+  const args a{mode, idx, wire, lane_key, s_win, k_win, table, m_rows, b_table, m_b_rows,
+               out, npos, batch, lp, wbits};
+  const int row = packed ? ROW_PACKED : ROW_DENSE;
   for (int lane = 0; lane < batch; ++lane) {
+    const int key = mode == MODE_INDEX ? 0 : lane_key[lane];
     std::vector<point> acc(parts);
     for (int j = 0; j < parts; ++j) {
       acc[j] = identity();
-      for (int pos = j * npos / parts; pos < (j + 1) * npos / parts; ++pos) {
-        const long long r = wire ? wire_row(wire + 96LL * lane, a_index[lane], npos, pos)
-                                 : (long long)idx[(long long)pos * batch + lane];
-        madd_row(acc[j], f_flat + r * ROW);
+      const int spp = steps_per_pos(a);
+      for (int t = spp * ((j * npos) >> lp); t < spp * (((j + 1) * npos) >> lp); ++t) {
+        bool inside;
+        const int32_t* r = step_row(a, row, lane, key, t, inside);
+        if (!inside) return 1;
+        if (packed)
+          madd_row<ROW_PACKED>(acc[j], r, step_negated(a, t));
+        else
+          madd_row<ROW_DENSE>(acc[j], r, step_negated(a, t));
       }
     }
     for (int s = 1; s < parts; s <<= 1) {
@@ -78,14 +95,32 @@ extern "C" void h_accumulate(const int32_t* idx, const uint8_t* wire, const int3
     }
     store_point(acc[0], out, batch, lane);
   }
+  return 0;
 }
 
 extern "C" void h_wire_rows(const uint8_t* wire, const int32_t* a_index, long long* out,
-                            int npos, int batch) {
+                            int npos, int batch, int wbits) {
   for (int lane = 0; lane < batch; ++lane)
     for (int pos = 0; pos < npos; ++pos)
       out[(long long)pos * batch + lane] =
-          k1::wire_row(wire + 96LL * lane, a_index[lane], npos, pos);
+          k1::wire_row(wire + 96LL * lane, a_index[lane], npos, pos, wbits);
+}
+
+extern "C" void h_encode_verdict_limbs(const int32_t* acc, const int32_t* r_y,
+                                       const int32_t* r_sign, const uint8_t* pre,
+                                       uint8_t* verdict, int32_t* affine, int batch) {
+  for (int lane = 0; lane < batch; ++lane) {
+    int32_t l[4][17], xo[17], yo[17];
+    for (int q = 0; q < 3; ++q)
+      for (int i = 0; i < 17; ++i) l[q][i] = acc[(q * 17 + i) * batch + lane];
+    for (int i = 0; i < 17; ++i) l[3][i] = r_y[i * batch + lane];
+    verdict[lane] = tail::encode_verdict_limbs_lane(l[0], l[1], l[2], l[3], r_sign[lane],
+                                                    pre[lane] != 0, xo, yo);
+    for (int i = 0; i < 17; ++i) {
+      affine[i * batch + lane] = xo[i];
+      affine[(17 + i) * batch + lane] = yo[i];
+    }
+  }
 }
 
 extern "C" void h_encode_verdict(const int32_t* acc, const uint8_t* wire, const uint8_t* pre,
@@ -119,9 +154,13 @@ def lib(tmp_path_factory):
     h = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     h.h_field_op.argtypes = [ci, vp, vp, vp, ci]
-    h.h_accumulate.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci]
-    h.h_wire_rows.argtypes = [vp, vp, vp, ci, ci]
+    cl = ctypes.c_longlong
+    h.h_accumulate.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, cl, vp, cl, vp,
+                               ci, ci, ci, ci]
+    h.h_accumulate.restype = ci
+    h.h_wire_rows.argtypes = [vp, vp, vp, ci, ci, ci]
     h.h_encode_verdict.argtypes = [vp, vp, vp, vp, vp, ci]
+    h.h_encode_verdict_limbs.argtypes = [vp, vp, vp, vp, vp, vp, ci]
     return h
 
 
@@ -199,6 +238,16 @@ def _wire(seed: int, batch: int):
     return np.ascontiguousarray(wire), a_index
 
 
+def _accumulate(lib, mode, table, out, npos, batch, parts, wbits, idx=None, wire=None,
+                lane_key=None, s_win=None, k_win=None, b_table=None):
+    """The harness's K1 loop: mode 0 index, 1 wire, 2 comb; the layout is
+    the table's width."""
+    return lib.h_accumulate(
+        mode, int(table.shape[1] == comb.ROW_PACKED), _ptr(idx), _ptr(wire), _ptr(lane_key),
+        _ptr(s_win), _ptr(k_win), _ptr(table), table.shape[0], _ptr(b_table),
+        0 if b_table is None else b_table.shape[0], _ptr(out), npos, batch, parts, wbits)
+
+
 def _canonical_point(p: torch.Tensor) -> torch.Tensor:
     """(4, 17, ...) -> the same with every coordinate canonical."""
     return fe.to_canonical(p.transpose(0, 1)).transpose(0, 1)
@@ -215,11 +264,11 @@ def test_split_accumulate_equals_plain(lib, tables, parts):
         out = np.zeros((4 * fe.NLIMB, batch), np.int32)
         idx_c = np.ascontiguousarray(idx)
         if mode == "index":
-            lib.h_accumulate(_ptr(idx_c), None, None, _ptr(tables), _ptr(out), comb.NPOS,
-                             batch, parts)
+            rc = _accumulate(lib, 0, tables, out, comb.NPOS, batch, parts, 4, idx=idx_c)
         else:
-            lib.h_accumulate(None, _ptr(wire), _ptr(a_index), _ptr(tables), _ptr(out),
-                             comb.NPOS, batch, parts)
+            rc = _accumulate(lib, 1, tables, out, comb.NPOS, batch, parts, 4, wire=wire,
+                             lane_key=a_index)
+        assert rc == 0
         np.testing.assert_array_equal(out.reshape(4, fe.NLIMB, batch), want, err_msg=mode)
 
 
@@ -229,7 +278,7 @@ def test_wire_rows_equal_plain_index(lib):
     wire[4, :64] = 0xF0
     want = comb.wire_index_plain(torch.from_numpy(wire), torch.from_numpy(a_index)).numpy()
     out = np.zeros((comb.NPOS, 32), np.int64)
-    lib.h_wire_rows(_ptr(wire), _ptr(a_index), _ptr(out), comb.NPOS, 32)
+    lib.h_wire_rows(_ptr(wire), _ptr(a_index), _ptr(out), comb.NPOS, 32, 4)
     np.testing.assert_array_equal(out, want)
 
 
@@ -270,3 +319,100 @@ def test_verdict_lane_equals_plain(lib, tables):
     assert verdict.astype(bool).tolist() == want_ok.tolist()
     assert want_ok.tolist() == [True, False, False, False, True, True, False, False]
     np.testing.assert_array_equal(xy, want_xy.numpy())
+
+
+CONFIGS = [("fused", w, name) for w in (4, 5, 6) for name in ("dense", "packed")]
+CONFIGS.append(("comb", 4, "dense"))
+
+
+@pytest.mark.parametrize("parts", [1, 4, 16])
+@pytest.mark.parametrize("mode,wbits,name", CONFIGS)
+def test_every_configuration_equals_plain(lib, mode, wbits, name, parts):
+    """The kernel's per-lane loop in every configuration, with the split
+    over P threads, against the plain version with the same P."""
+    batch = 8
+    pts = [ref.point_decompress(ref.public_key(bytes([i + 1]) * 32)) for i in range(2)]
+    comb.use_row_packing(name == "packed")
+    try:
+        out = np.zeros((4 * fe.NLIMB, batch), np.int32)
+        if mode == "comb":
+            a_flat = np.ascontiguousarray(np.concatenate([comb.comb_table_np(p) for p in pts]))
+            b_flat = np.ascontiguousarray(comb.base_table())
+            rng = np.random.default_rng(parts)
+            s_w = rng.integers(0, 16, (comb.NPOS, batch), dtype=np.int32)
+            k_w = rng.integers(0, 16, (comb.NPOS, batch), dtype=np.int32)
+            s_w[:, 0], k_w[:, 1] = 15, 15
+            base = (rng.integers(0, 2, batch) * comb.NPOS * comb.WINDOW).astype(np.int32)
+            want = comb.comb_accumulate_plain(
+                *[torch.from_numpy(x) for x in (s_w, k_w, base, a_flat, b_flat)], parts=parts)
+            rc = _accumulate(lib, 2, a_flat, out, comb.NPOS, batch, parts, 4, s_win=s_w,
+                             k_win=k_w, lane_key=base, b_table=b_flat)
+            assert rc == 0
+            np.testing.assert_array_equal(out.reshape(4, fe.NLIMB, batch),
+                                          _canonical_point(want).numpy())
+            return
+        table = np.ascontiguousarray(np.concatenate([comb.fused_table_np(p, wbits) for p in pts]))
+        npos = comb.npos_for(wbits)
+        wire, a_index = _wire(parts + wbits, batch)
+        a_index %= 2
+        idx = comb.wire_index_plain(torch.from_numpy(wire), torch.from_numpy(a_index),
+                                    1 << wbits)
+        want = _canonical_point(comb.madd_loop_plain(
+            idx, torch.from_numpy(table), parts=parts)).numpy()
+        idx_c = np.ascontiguousarray(idx.numpy())
+        assert _accumulate(lib, 0, table, out, npos, batch, parts, wbits, idx=idx_c) == 0
+        np.testing.assert_array_equal(out.reshape(4, fe.NLIMB, batch), want, err_msg="index")
+        out[:] = 0
+        assert _accumulate(lib, 1, table, out, npos, batch, parts, wbits, wire=wire,
+                           lane_key=a_index) == 0
+        np.testing.assert_array_equal(out.reshape(4, fe.NLIMB, batch), want, err_msg="wire")
+    finally:
+        comb.use_row_packing(False)
+
+
+def test_row_outside_its_table_is_refused(lib, tables):
+    """A row index past the bank is reported (the kernel traps on it)."""
+    out = np.zeros((4 * fe.NLIMB, 8), np.int32)
+    idx = np.zeros((comb.NPOS, 8), np.int32)
+    idx[5, 3] = tables.shape[0]
+    assert _accumulate(lib, 0, tables, out, comb.NPOS, 8, 1, 4, idx=idx) == 1
+
+
+@pytest.mark.parametrize("wbits", [4, 5, 6])
+def test_wire_rows_every_window_equal_plain(lib, wbits):
+    """Rows from the wire bytes at every width; lanes whose S and k are all
+    ones put 0xff in byte 32 of S (k's first byte) and of k (R's): the top
+    window must stop at bit 255."""
+    wire, a_index = _wire(40 + wbits, 32)
+    wire[3, :64] = 0xFF
+    wire[4, :64] = 0xF0
+    wire[5, 32:64] = 0x00
+    wire[5, 31] = 0x80
+    npos = comb.npos_for(wbits)
+    want = comb.wire_index_plain(torch.from_numpy(wire), torch.from_numpy(a_index),
+                                 1 << wbits).numpy()
+    out = np.zeros((npos, 32), np.int64)
+    lib.h_wire_rows(_ptr(wire), _ptr(a_index), _ptr(out), npos, 32, wbits)
+    np.testing.assert_array_equal(out, want)
+    fw = 1 << 2 * wbits
+    top = (1 << (256 - wbits * (npos - 1))) - 1
+    assert out[npos - 1, 3] % fw == top * (1 << wbits) + top
+
+
+def test_verdict_limbs_lane_equals_plain(lib, tables):
+    """The comb path's lane: R.y as 17 x 15 limbs and its sign."""
+    batch = 8
+    acc, wire, pre = _signed_batch(batch, tables)
+    r_y, r_sign = comb.r_from_wire(torch.from_numpy(wire))
+    want_ok, want_xy = comb.encode_and_compare_plain(acc, r_y, r_sign, torch.from_numpy(pre),
+                                                     affine=True)
+    acc_np = np.ascontiguousarray(acc.numpy().reshape(4 * fe.NLIMB, batch))
+    verdict = np.zeros(batch, np.uint8)
+    xy = np.zeros((2 * fe.NLIMB, batch), np.int32)
+    lib.h_encode_verdict_limbs(_ptr(acc_np), _ptr(np.ascontiguousarray(r_y.numpy())),
+                               _ptr(np.ascontiguousarray(r_sign.numpy())),
+                               _ptr(pre.astype(np.uint8)), _ptr(verdict), _ptr(xy), batch)
+    assert verdict.astype(bool).tolist() == want_ok.tolist()
+    assert want_ok.tolist() == [True, False, False, False, True, True, False, False]
+    np.testing.assert_array_equal(xy, want_xy.numpy())
+

@@ -104,21 +104,39 @@ def _expected_digest():
     return kv.state_digest()
 
 
-async def _settle(replicas, want):
+async def _settle(replicas, want, seconds=10.0):
     """A client may return on speculative replies, before any replica
     has committed the last put: wait until every replica's state holds
-    all of PUTS."""
-    for _ in range(200):
+    all of PUTS, for at most `seconds`."""
+    for _ in range(int(seconds / 0.05)):
         if {r.app.state_digest() for r in replicas} == {want}:
             return
         await asyncio.sleep(0.05)
+
+
+# The port half's timers. Every device pass here runs the plain versions
+# on the CPU, about 0.25 s a pass on an idle 8-core host, and a put waits on
+# about five of them (1.2-1.5 s): within reach of the configuration's 2 s
+# view timer and the client's 1 s request timer. Under a loaded test run
+# (six workers) passes take several times as long, the backups' view
+# timers fired, and the run fell into view changes and client retries
+# that this test does not examine. So the committee runs with the 30 s
+# view timer of chip_smoke.py and bench_consensus.py's clean runs, the
+# client waits 5 s an attempt, and the settle wait ends on the expected
+# state or after 60 s; the JAX half keeps its defaults (its CPU verifier
+# answers in milliseconds).
+PORT_VIEW_TIMEOUT = 30.0
+PORT_REQUEST_TIMEOUT = 5.0
+PORT_SETTLE_S = 60.0
 
 
 def test_tcp_committee_on_shared_gpu_service_matches_jax(tmp_path):
     """n = 4 replicas and a client in one process over the port's real
     TcpTransport (node.make_transport), all verifying through one
     VerifyService(GpuVerifier(device="cpu")) with the CPU route off."""
-    dep = tdeploy.generate(str(tmp_path), n=4, clients=1, base_port=_base_port(0))
+    dep = tdeploy.generate(str(tmp_path), n=4, clients=1, base_port=_base_port(0),
+                           view_timeout=PORT_VIEW_TIMEOUT)
+    assert dep.cfg.view_timeout == PORT_VIEW_TIMEOUT
     gpu = GpuVerifier(device="cpu", initial_keys=len(dep.cfg.pubkeys) + 32)
     svc = VerifyService(gpu, cpu_cutoff=0, max_batch=32, dispatch_deadline=None)
     svc.warm_for_population(list(dep.cfg.pubkeys.values()), max_sweep=32)
@@ -134,14 +152,15 @@ def test_tcp_committee_on_shared_gpu_service_matches_jax(tmp_path):
         ]
         client = Client(client_id="c0", cfg=dep.cfg,
                         seed=tdeploy.read_seed(str(tmp_path), "c0"),
-                        transport=transports["c0"])
+                        transport=transports["c0"], request_timeout=PORT_REQUEST_TIMEOUT)
         for r in replicas:
             r.start()
         client.start()
         try:
             replies = [await client.submit(op) for op in PUTS]
-            await _settle(replicas, _expected_digest())
-            return replies, {r.app.state_digest() for r in replicas}, transports
+            await _settle(replicas, _expected_digest(), PORT_SETTLE_S)
+            return (replies, {r.app.state_digest() for r in replicas}, transports,
+                    sorted(r.executed_seq for r in replicas), sorted(r.view for r in replicas))
         finally:
             await client.stop()
             for r in replicas:
@@ -150,14 +169,14 @@ def test_tcp_committee_on_shared_gpu_service_matches_jax(tmp_path):
                 await t.stop()
 
     try:
-        replies, digests, transports = run(scenario())
+        replies, digests, transports, executed, views = run(scenario())
     finally:
         svc.close()
     assert replies == ["ok"] * len(PUTS)
     assert svc.device_passes > 0 and svc.cpu_passes == 0
     assert gpu.post_warm_compiles == 0
     assert all(type(t).__name__ == "TcpTransport" for t in transports.values())
-    assert digests == {_expected_digest()}
+    assert digests == {_expected_digest()}, (executed, views)
 
     jax_com = JaxCommittee.build(n=4, clients=1)
 

@@ -10,7 +10,12 @@ a card and no JAX it runs on its own:
   `madd_loop_plain(wire_index_plain(...), parts=P)` in every canonical
   limb;
 - the verdict kernel equals `encode_and_compare_plain`: the same bitmap
-  and the same canonical affine (x, y).
+  and the same canonical affine (x, y);
+- in every configuration of the accumulate kernel (fused windows of 4, 5
+  and 6 bits in dense and packed rows, in wire and index mode, and the
+  comb mode), the kernel equals its plain version with the same P;
+- the verdict kernel's comb entry (R as staged limbs and sign) equals
+  `encode_and_compare_plain`.
 """
 
 import numpy as np
@@ -85,3 +90,98 @@ def test_verdict_kernel_equals_plain(card, batch):
     assert want_ok[3] and want_ok[4]
     assert torch.equal(ok, want_ok)
     assert torch.equal(got_xy, want_xy)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _canonical(p):
+    return fe.to_canonical(p.transpose(0, 1)).transpose(0, 1)
+
+
+CONFIGS = [("fused", w, name) for w in (4, 5, 6) for name in ("dense", "packed")]
+CONFIGS.append(("comb", 4, "dense"))
+
+
+def _comb_inputs(dev, batch, seed):
+    """Two keys' comb tables, the base table, nibbles and key row bases."""
+    rng = np.random.default_rng(seed)
+    pts = [ref.point_decompress(ref.public_key(bytes([i + 1]) * 32)) for i in range(2)]
+    a_flat = torch.from_numpy(np.concatenate([comb.comb_table_np(p) for p in pts])).to(dev)
+    s = rng.integers(0, 16, (comb.NPOS, batch), dtype=np.int32)
+    k = rng.integers(0, 16, (comb.NPOS, batch), dtype=np.int32)
+    base = (rng.integers(0, 2, batch) * comb.NPOS * comb.WINDOW).astype(np.int32)
+    return ([torch.from_numpy(x).to(dev) for x in (s, k, base)] + [a_flat]
+            + [comb.base_table_device(dev)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8, 1000])
+@pytest.mark.parametrize("mode,wbits,name", CONFIGS)
+def test_accumulate_kernel_every_configuration_equals_plain(mode, wbits, name, batch):
+    """Every configuration launches K1 and equals its plain version, with
+    the P its wrapper picks (P need not divide 52 or 43), in every
+    canonical limb."""
+    dev = _need_card()
+    comb.use_row_packing(name == "packed")
+    try:
+        k1 = comb.accumulate_kernel
+        before = dict(k1.launches_by)
+        config = comb.config_name(mode, wbits, comb.ROW)
+        if mode == "comb":
+            args = _comb_inputs(dev, batch, batch + wbits)
+            parts = k1.parts_for(batch, dev)
+            got = k1.comb(*args)
+            want = comb.comb_accumulate_plain(*args, parts=parts)
+            launched = 1
+        else:
+            pts = [ref.point_decompress(ref.public_key(bytes([i + 1]) * 32)) for i in range(2)]
+            f_flat = torch.from_numpy(
+                np.concatenate([comb.fused_table_np(p, wbits) for p in pts])).to(dev)
+            wire, a_idx, _ = _wire(dev, batch, batch + wbits)
+            a_idx = a_idx % 2
+            parts = k1.parts_for(batch, dev, comb.npos_for(wbits))
+            got = k1.wire(wire, a_idx, f_flat, window=1 << wbits)
+            idx = comb.wire_index_plain(wire, a_idx, 1 << wbits)
+            want = comb.madd_loop_plain(idx, f_flat, parts=parts)
+            got_index = k1(idx.contiguous(), f_flat)
+            torch.cuda.synchronize()
+            assert torch.equal(got_index.reshape(4, fe.NLIMB, batch), _canonical(want))
+            launched = 2
+        torch.cuda.synchronize()
+        assert k1.launches_by.get(config, 0) == before.get(config, 0) + launched
+        assert torch.equal(got.reshape(4, fe.NLIMB, batch), _canonical(want))
+    finally:
+        comb.use_row_packing(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8, 1000])
+def test_verdict_kernel_comb_entry_equals_plain(batch):
+    """The limb entry: R.y as (17, B) limbs and its sign as (B,) int32."""
+    dev = _need_card()
+    args = _comb_inputs(dev, batch, batch)
+    acc = comb.accumulate_kernel.comb(*args)
+    p = acc.reshape(4, fe.NLIMB, batch)
+    rng = np.random.default_rng(batch)
+    r_y = torch.from_numpy(rng.integers(0, 1 << 15, (fe.NLIMB, batch), dtype=np.int32)).to(dev)
+    r_sign = torch.from_numpy(rng.integers(0, 2, batch).astype(np.int32)).to(dev)
+    pre = torch.from_numpy(rng.random(batch) < 0.9).to(dev)
+    # lanes 3 and 4 carry their own point's encoding, so they match
+    _, xy = comb.encode_and_compare_plain(p, r_y, r_sign, pre, affine=True)
+    for lane in (3, 4):
+        r_y[:, lane] = xy[fe.NLIMB:, lane]
+        r_sign[lane] = xy[0, lane] & 1
+        pre[lane] = True
+    want_ok, want_xy = comb.encode_and_compare_plain(p, r_y, r_sign, pre, affine=True)
+    before = comb.encode_kernel.launches_by.get("limbs", 0)
+    ok, got_xy = comb.encode_kernel.limbs(acc, r_y, r_sign, pre, affine=True)
+    torch.cuda.synchronize()
+    assert comb.encode_kernel.launches_by["limbs"] == before + 1
+    assert want_ok[3] and want_ok[4]
+    assert torch.equal(ok, want_ok)
+    assert torch.equal(got_xy, want_xy)
+

@@ -19,9 +19,11 @@ def _run(args, timeout):
 
 
 def _base_port(offset):
-    # 30000-37500 with the grpc run's +4000 and the client's +500: apart
-    # from the other tests' ranges (7400-11000, 21000-24490)
-    return 30000 + (os.getpid() % 300) * 10 + offset
+    # 25000-28500 with the client's +500, and 28500-32011 for the grpc
+    # run's +3500: apart from the other tests' ranges (7400-11000,
+    # 21000-24490) and below the kernel's ephemeral ports (32768 up), which
+    # any outgoing connection of a concurrent test may hold
+    return 25000 + (os.getpid() % 250) * 12 + offset
 
 
 def _launch(package, tmp_path, base_port, *extra):
@@ -46,7 +48,7 @@ def test_port_launch_prints_the_jax_launchers_results(tmp_path):
 
 def test_port_launch_over_grpc(tmp_path):
     pytest.importorskip("grpc")
-    got = _launch("simple_pbft_tpu_torch", tmp_path, _base_port(0) + 4000,
+    got = _launch("simple_pbft_tpu_torch", tmp_path, _base_port(0) + 3500,
                   "--transport", "grpc")
     assert got == [f"'put k{i} v{i}' -> 'ok'" for i in range(8)]
 
