@@ -5,16 +5,17 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the two CUDA kernels of the device pass and the native host
-helpers from the sources in the repository, then, printing one JSON line
-per phase:
+It builds the three CUDA kernels (the device pass's two, and the ladder
+mode's) and the native host helpers from the sources in the repository,
+then, printing one JSON line per phase:
 
 1. device   — the card's name and power limit (nvidia-smi);
-2. build    — nvcc / g++ build seconds and both kernels' register reports;
+2. build    — nvcc / g++ build seconds and the kernels' register reports;
 3. field    — the kernels' field header (csrc/field25519.cuh) on the
               card, through the verdict library's test entry: multiply,
-              square, inversion and canonical reduction against
-              ops/field25519.py on edge and random inputs, exactly;
+              square, inversion, canonical reduction, pow22523 and
+              negation against ops/field25519.py on edge and random
+              inputs, exactly;
 4. kernel   — at every batch bucket, the accumulate kernel (index mode on
               random windows, wire mode on random wire bytes, each with
               the P its wrapper picks) and the verdict kernel against
@@ -31,7 +32,14 @@ per phase:
               seeded corruptions, its bitmap equal to the CPU oracle item
               by item (BASELINE config 3's key population, the bench's 16
               signers at w = 6), with the launches of that drive counted
-              per configuration; times, P and bounds at B = 8192;
+              per configuration; times, P and bounds at B = 8192. The
+              eighth configuration is the ladder mode (no key bank): the
+              ladder kernel K9 against verify_kernel_plain at B = 8, 512
+              and 8192 on config 3's items with seeded corruptions and on
+              a fixed adversarial batch (verdicts and canonical affine
+              accumulators, exactly), then a GpuVerifier(mode="ladder")
+              on the 8,192 items, one K9 launch a verify and no launch of
+              the other two kernels;
 6. verifier — a GpuVerifier over an n=64 committee + 64 clients (key
               bank of 256) verifying an 8,192-item batch with seeded
               corruptions; the bitmap must equal the CPU oracle item by
@@ -66,8 +74,8 @@ per phase:
               simple_pbft_tpu_torch.bench_consensus --configs 2 --verifier
               gpu --seconds 10 (commits, device passes);
 10. the kernels line (launches of the committee, the deployment and the
-   modes phase's verifier drives; each kernel's `configs` map), and last
-   the device line.
+   modes phase's verifier drives; each kernel's `configs` map; K9's
+   launches are the ladder drive's), and last the device line.
 
 Every phase prints its seconds (`phase_seconds` of the `done` line).
 
@@ -113,6 +121,19 @@ CHAIN_SQUARES, CHAIN_MULS, CHAIN_WIDTH = 254, 11, 128
 TAIL_BYTES_PER_LANE = 3 * 17 * 4 + 32 + 1 + 1
 # the comb path's R: 17 limbs and a sign, int32
 LIMB_TAIL_BYTES_PER_LANE = 3 * 17 * 4 + 17 * 4 + 4 + 1 + 1
+# the ladder (K9) per lane, at the least work a verify needs: 256 steps of
+# a doubling from (X, Y, Z) (4 squares, then 4 multiplies to extended
+# coordinates) and an addition of a cached (Y - X, Y + X, 2Z, 2dT) addend
+# (4 multiplies, then 3 back to (X, Y, Z)), as K1's madd is counted in its
+# Niels form; the kernel's unified formulas spend 13 multiplies a step.
+# Then B + Q (9); two decompressions (255 squares, 251 of them in
+# pow22523, and 20 multiplies each); the projective comparison (2)
+LADDER_STEP_PRODUCTS = 4 * SQ_PRODUCTS + 11 * WIDE_PRODUCTS_PER_MUL
+DECOMPRESS_PRODUCTS = 255 * SQ_PRODUCTS + 20 * WIDE_PRODUCTS_PER_MUL
+LADDER_PRODUCTS_PER_LANE = (256 * LADDER_STEP_PRODUCTS + 2 * DECOMPRESS_PRODUCTS
+                            + (9 + 2) * WIDE_PRODUCTS_PER_MUL)
+# A.y, R.y (17 limbs), two signs, two (256,) bit columns, precheck, verdict
+LADDER_BYTES_PER_LANE = 2 * 17 * 4 + 2 * 4 + 2 * 256 * 4 + 1 + 1
 
 
 def emit(phase, **kw):
@@ -159,12 +180,12 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc for the two kernels and g++ for the native helpers, all
+    """nvcc for the three kernels and g++ for the native helpers, all
     started together; every one must succeed."""
     from concurrent.futures import ThreadPoolExecutor
 
     from simple_pbft_tpu_torch import native
-    from simple_pbft_tpu_torch.ops import comb
+    from simple_pbft_tpu_torch.ops import comb, ladder
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -172,10 +193,11 @@ def phase_build():
         return out, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         jobs = {
             "fused_accumulate.cu": pool.submit(timed, comb.accumulate_kernel.library),
             "encode_verdict.cu": pool.submit(timed, comb.encode_kernel.library),
+            "ladder_verify.cu": pool.submit(timed, ladder.ladder_kernel.library),
             "pbft_native.cpp": pool.submit(timed, native.available),
             "ed25519.cpp": pool.submit(timed, native.ed25519_available),
             "canonjson.cpp": pool.submit(timed, native.canonjson_available),
@@ -187,7 +209,8 @@ def phase_build():
         name: [ln.strip() for ln in k.build_log.splitlines()
                if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         for name, k in (("fused_accumulate", comb.accumulate_kernel),
-                        ("encode_verdict", comb.encode_kernel))
+                        ("encode_verdict", comb.encode_kernel),
+                        ("ladder_verify", ladder.ladder_kernel))
     }
     emit("build", seconds={k: round(v[1], 3) for k, v in results.items()},
          wall_seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
@@ -275,7 +298,8 @@ def phase_field():
     a = torch.from_numpy(np.concatenate([limbs, weak], axis=1)).to(dev).contiguous()
     b = a.flip(1).contiguous()
     plain = {"mul": lambda: fe.mul(a, b), "sq": lambda: fe.mul(a, a),
-             "invert": lambda: fe.invert(a), "canonical": lambda: a}
+             "invert": lambda: fe.invert(a), "canonical": lambda: a,
+             "pow22523": lambda: fe.pow22523(a), "neg": lambda: fe.neg(a)}
     rows = {}
     for op, fn in plain.items():
         got = comb.encode_kernel.field_op(op, a, b)
@@ -474,9 +498,10 @@ def _population(name):
     return _POPULATIONS[name]
 
 
-# (mode, window bits, packed rows): the accumulate kernel's configurations
+# (mode, window bits, packed rows): the accumulate kernel's configurations,
+# then the ladder mode's, which runs K9 alone
 MODE_CONFIGS = [("fused", w, packed) for w in (4, 5, 6) for packed in (False, True)]
-MODE_CONFIGS.append(("comb", 4, False))
+MODE_CONFIGS += [("comb", 4, False), ("ladder", 4, False)]
 MODE_BATCHES = (8, 512, 8192)
 
 
@@ -586,6 +611,69 @@ def _mode_kernels(mode, wbits, verifier, seed):
     return rows
 
 
+def _ladder_check(items, what):
+    """K9 against verify_kernel_plain on the staged items: verdicts and
+    canonical affine accumulators exactly. -> (row, device arrays)."""
+    import torch
+
+    from simple_pbft_tpu_torch.crypto import gpu_verifier as gv
+    from simple_pbft_tpu_torch.ops import ladder
+
+    arrays = [torch.from_numpy(a).to("cuda") for a in gv.prepare_batch(items).arrays()]
+    ok, xy = ladder.ladder_kernel(*arrays, affine=True)
+    want_ok, want_xy = ladder.verify_kernel_plain(*arrays, affine=True)
+    torch.cuda.synchronize()
+    row = {"batch": len(items), "max_abs_err": _max_err(xy, want_xy),
+           "verdicts_equal": bool(torch.equal(ok, want_ok)), "accepted": int(ok.sum())}
+    check(row["verdicts_equal"] and row["max_abs_err"] == 0,
+          f"ladder: K9 != verify_kernel_plain ({what}): {row}")
+    return row, arrays
+
+
+def _ladder_kernels(population):
+    """K9 against its plain version at every batch of MODE_BATCHES on the
+    population's items, corrupted ones first, and on the adversarial
+    batch; times, bounds and registers at the largest, and K9's time at
+    every bucket."""
+    import torch
+
+    from simple_pbft_tpu_torch.crypto import ed25519_cpu as ref
+    from simple_pbft_tpu_torch.crypto import gpu_verifier as gv
+    from simple_pbft_tpu_torch.crypto.adversarial import ladder_adversarial_items
+    from simple_pbft_tpu_torch.crypto.gpu_verifier import BUCKETS
+    from simple_pbft_tpu_torch.ops import ladder
+
+    _, items, bad, _, _ = _population(population)
+    badset = set(bad)
+    rows = {}
+    for batch in MODE_BATCHES:
+        order = bad[: batch // 4] + [i for i in range(len(items)) if i not in badset]
+        row, arrays = _ladder_check([items[i] for i in order[:batch]], f"B={batch}")
+        rows[batch] = {"ladder": row}
+    row["kernel_ms"] = cuda_ms(lambda: ladder.ladder_kernel(*arrays), 10, 2)
+    # the plain version runs for seconds at B = 8192, and the check above
+    # has warmed it: one timed run
+    row["plain_ms"] = cuda_ms(lambda: ladder.verify_kernel_plain(*arrays), 1, 0)
+    row.update(_bound(MODE_BATCHES[-1] * LADDER_BYTES_PER_LANE,
+                      MODE_BATCHES[-1] * LADDER_PRODUCTS_PER_LANE, arrays[0].device))
+    named = ladder_adversarial_items()
+    adv, _ = _ladder_check([it for _, it in named], "adversarial")
+    oracle = [ref.verify(it.pubkey, it.msg, it.sig) for _, it in named]
+    got = gv.GpuVerifier(mode="ladder").verify_batch([it for _, it in named])
+    check(got == oracle, f"ladder: adversarial bitmap {got} != oracle {oracle}")
+    adv["rows"] = {name: ok for (name, _), ok in zip(named, got)}
+    rows["adversarial"] = {"ladder": adv}
+    row["ptxas"] = [ln.strip() for ln in ladder.ladder_kernel.build_log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+    # K9's time at every bucket: how far one lane's chain sets it
+    row["ms_by_bucket"] = {}
+    for batch in BUCKETS:
+        staged = [torch.from_numpy(a).to("cuda")
+                  for a in gv.prepare_batch(items[:batch]).arrays()]
+        row["ms_by_bucket"][str(batch)] = cuda_ms(lambda: ladder.ladder_kernel(*staged), 5, 1)
+    return rows
+
+
 def _mode_drive(verifier, population):
     """The configuration's path: GpuVerifier.verify_batch on the
     population's 8,192 items, once for the bitmap and three times more
@@ -594,33 +682,44 @@ def _mode_drive(verifier, population):
     K1 in this configuration and the verdict kernel once."""
     import torch
 
-    from simple_pbft_tpu_torch.ops import comb
+    from simple_pbft_tpu_torch.ops import comb, ladder
 
     _, items, bad, oracle, _ = _population(population)
-    entry = "limbs" if verifier.config.startswith("comb") else "wire"
-    comb.accumulate_kernel.reset_counts()
-    comb.encode_kernel.reset_counts()
+    kernels = {"fused_accumulate": comb.accumulate_kernel, "encode_verdict": comb.encode_kernel,
+               "ladder_verify": ladder.ladder_kernel}
+    if verifier.config == "ladder":
+        want = {"fused_accumulate": {}, "encode_verdict": {}, "ladder_verify": {"ladder_verify": 4}}
+    else:
+        entry = "limbs" if verifier.config.startswith("comb") else "wire"
+        want = {"fused_accumulate": {verifier.config: 4}, "encode_verdict": {entry: 4},
+                "ladder_verify": {}}
+    for k in kernels.values():
+        k.reset_counts()
     got = verifier.verify_batch(items)
     e2e = []
     for _ in range(3):
         t0 = time.perf_counter()
         verifier.verify_batch(items)
         e2e.append(time.perf_counter() - t0)
-    launches = {"fused_accumulate": dict(comb.accumulate_kernel.launches_by),
-                "encode_verdict": dict(comb.encode_kernel.launches_by)}
+    launches = {name: dict(k.launches_by) for name, k in kernels.items()}
     mismatch = [i for i, (a, b) in enumerate(zip(got, oracle)) if a != b]
     check(not mismatch, f"{verifier.config}: bitmap != oracle at {mismatch[:10]}")
-    check(launches == {"fused_accumulate": {verifier.config: 4}, "encode_verdict": {entry: 4}},
-          f"{verifier.config}: launches {launches}, not one of each per verify of 4")
+    check(launches == want, f"{verifier.config}: launches {launches}, not {want} "
+          f"for 4 verifies")
     t0 = time.perf_counter()
     prep, _ = verifier.prepare(items)
     prep_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     arrays = [torch.from_numpy(a).to(verifier.device) for a in prep.arrays()]
-    tables = verifier._bank.device_tables()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    tables = verifier._bank.device_tables() if verifier._bank is not None else None
     return {
         "batch": len(items), "corrupted": len(bad), "matches_oracle": True,
         "launches": launches, "verifies_per_s_e2e": len(items) / statistics.median(e2e),
-        "host_prep_s": prep_s,
+        "host_prep_s": prep_s, "upload_bytes": sum(a.nbytes for a in prep.arrays()),
+        "upload_s": upload_s,
         "device_pass_ms": cuda_ms(lambda: verifier.device_pass(arrays, tables), 5),
     }
 
@@ -628,8 +727,8 @@ def _mode_drive(verifier, population):
 def phase_modes():
     """Every configuration of the accumulate kernel: K1 against its plain
     version, then a GpuVerifier in that configuration on an 8,192-item
-    batch. -> {config: row}, each row's `drive` holding the launches of
-    its verifier drive."""
+    batch; then the same for the ladder mode and K9. -> {config: row},
+    each row's `drive` holding the launches of its verifier drive."""
     import torch
 
     from simple_pbft_tpu_torch.crypto.gpu_verifier import GpuVerifier
@@ -638,7 +737,8 @@ def phase_modes():
     out = {}
     for n, (mode, wbits, packed) in enumerate(MODE_CONFIGS):
         t_config = time.perf_counter()
-        name = comb.config_name(mode, wbits, comb.ROW_PACKED if packed else comb.ROW_DENSE)
+        name = ("ladder" if mode == "ladder" else
+                comb.config_name(mode, wbits, comb.ROW_PACKED if packed else comb.ROW_DENSE))
         population = "bench16" if wbits == 6 else "config3"
         pubkeys = _population(population)[0]
         comb.use_row_packing(packed)
@@ -646,17 +746,24 @@ def phase_modes():
             t0 = time.perf_counter()
             v = GpuVerifier(mode=mode, window=wbits,
                             initial_keys=len(pubkeys) + (0 if wbits == 6 else 32))
-            _register(v, pubkeys)
+            bank = v._bank
+            if bank is not None:
+                _register(v, pubkeys)
             v.warm_for_population(pubkeys, max_sweep=8192)
             build_s = time.perf_counter() - t0
-            check(len(v._bank._index) == len(pubkeys), f"{v.config}: bank holds "
-                  f"{len(v._bank._index)} of {len(pubkeys)} keys")
-            kernels = _mode_kernels(mode, wbits, v, 4000 + n)
+            if bank is not None:
+                check(len(bank._index) == len(pubkeys), f"{v.config}: bank holds "
+                      f"{len(bank._index)} of {len(pubkeys)} keys")
+                kernels = _mode_kernels(mode, wbits, v, 4000 + n)
+            else:
+                kernels = _ladder_kernels(population)
             drive = _mode_drive(v, population)
             row = {"mode": mode, "window": wbits, "rowpack": packed,
-                   "population": population, "bank_keys": len(v._bank._index),
-                   "bank_capacity": v._bank._cap, "bank_bytes": v._bank._np.nbytes,
-                   "max_keys": v._bank._max_keys, "build_and_warm_s": build_s,
+                   "population": population,
+                   "bank_keys": len(bank._index) if bank else 0,
+                   "bank_capacity": bank._cap if bank else 0,
+                   "bank_bytes": bank._np.nbytes if bank else 0,
+                   "max_keys": bank._max_keys if bank else None, "build_and_warm_s": build_s,
                    "by_batch": {str(b): r for b, r in kernels.items()}, "drive": drive}
             check(v.config == name, f"{v.config} built for {name}")
             out[name] = row
@@ -1072,7 +1179,8 @@ def _deployment(deploy_dir):
               f"{node_id} left the device: {v}")
         check(v["post_warm_compiles"] == 0, f"{node_id} met a first-time shape: {v}")
         check(v["kernel_launches"] == {"fused_accumulate": v["device_passes"],
-                                       "encode_verdict": v["device_passes"]},
+                                       "encode_verdict": v["device_passes"],
+                                       "ladder_verify": 0},
               f"{node_id}: launches {v['kernel_launches']} != one of each per device pass")
     check(len(frontier) == 1 and frontier[0] > 0, f"nodes stopped on {frontier}")
     check(all(f"{k}/kernel" in profile["kernels"] for k in launches),
@@ -1151,7 +1259,7 @@ def phase_bench():
 def _modes_launches(modes):
     """The modes phase's launches, summed over its verifier drives."""
     return {k: sum(sum(r["drive"]["launches"][k].values()) for r in modes.values())
-            for k in ("fused_accumulate", "encode_verdict")}
+            for k in ("fused_accumulate", "encode_verdict", "ladder_verify")}
 
 
 def _accumulate_configs(modes):
@@ -1161,6 +1269,8 @@ def _accumulate_configs(modes):
     top = str(MODE_BATCHES[-1])
     out = {}
     for name, r in modes.items():
+        if r["mode"] == "ladder":
+            continue
         row = r["by_batch"][top]
         main = row["wire"] if r["mode"] == "fused" else row["comb"]
         errs = [v["max_abs_err"] for b in r["by_batch"].values()
@@ -1181,8 +1291,8 @@ def kernel_rows(rows, by_path, modes):
     """The kernels line: each kernel at the largest bucket, in the mode
     the main path runs it; `launches` sums the paths' counts; `configs`
     holds every configuration (K1) or entry (the verdict kernel)."""
-    launches = {k: sum(p[k] for p in by_path.values())
-                for k in ("fused_accumulate", "encode_verdict")}
+    launches = {k: sum(p.get(k, 0) for p in by_path.values())
+                for k in ("fused_accumulate", "encode_verdict", "ladder_verify")}
     top = max(rows)
     k1 = rows[top]["wire"]
     tail = rows[top]["verdict"]
@@ -1197,6 +1307,8 @@ def kernel_rows(rows, by_path, modes):
     entry_launches = {e: sum(r["drive"]["launches"]["encode_verdict"].get(e, 0)
                              for r in modes.values()) for e in ("wire", "limbs")}
     main_paths = sum(v["encode_verdict"] for p, v in by_path.items() if p != "modes")
+    lad = modes["ladder"]
+    k9 = lad["by_batch"][str(MODE_BATCHES[-1])]["ladder"]
     return [{
         "name": "fused_accumulate",
         "route": "cuda",
@@ -1239,6 +1351,27 @@ def kernel_rows(rows, by_path, modes):
                       "plain_ms": limbs["plain_ms"], "bound_ms": limbs["bound_ms"],
                       "bound_by": limbs["bound_by"], "launches": entry_launches["limbs"]},
         },
+    }, {
+        "name": "ladder_verify",
+        "route": "cuda",
+        "source": "simple_pbft_tpu_torch/csrc/ladder_verify.cu",
+        "replaces": "simple_pbft_tpu/crypto/tpu_verifier.py:197 (verify_kernel), XLA",
+        "launches": launches["ladder_verify"],
+        "launches_by_path": {p: v.get("ladder_verify", 0) for p, v in by_path.items()},
+        "max_abs_err": max(b["ladder"]["max_abs_err"] for b in lad["by_batch"].values()),
+        "batch": MODE_BATCHES[-1],
+        "ms": k9["kernel_ms"],
+        "plain_ms": k9["plain_ms"],
+        "bound_ms": k9["bound_ms"],
+        "bound_by": k9["bound_by"],
+        "library_ms": None,
+        "library": "none: no PyTorch call computes it",
+        "configs": {"ladder": {"batch": MODE_BATCHES[-1], "ms": k9["kernel_ms"],
+                               "plain_ms": k9["plain_ms"], "bound_ms": k9["bound_ms"],
+                               "bound_by": k9["bound_by"],
+                               "launches": lad["drive"]["launches"]["ladder_verify"]["ladder_verify"],
+                               "device_pass_ms": lad["drive"]["device_pass_ms"],
+                               "verifies_per_s_e2e": lad["drive"]["verifies_per_s_e2e"]}},
     }]
 
 

@@ -24,9 +24,16 @@ or the separate-table comb with 4-bit windows:
 Verification equation (cofactorless, RFC 8032 permits): [S]B == R + [k]A,
 rearranged to [S]B + [k](−A) == R.
 
+The ladder mode (`mode="ladder"`) keeps no key bank: the host stages A's
+and R's y limbs and signs and the bits of S and k (`prepare_batch`, the
+JAX package's arrays byte for byte), and one hand-written kernel (K9,
+ops/ladder.py) decompresses A and R on the device and runs a 256-step
+Straus ladder per item (`verify_kernel`; its plain version is
+`verify_kernel_plain`, both imported here under the JAX package's names).
+It serves key sets of any size.
+
 The verifier runs on CUDA unless constructed with ``device="cpu"`` (the
-tests do); without a CUDA device it raises instead of falling back. The
-ladder mode of the JAX package is not ported yet.
+tests do); without a CUDA device it raises instead of falling back.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ import torch
 from .. import native, resolve_device
 from ..ops import comb
 from ..ops import field25519 as fe
+from ..ops import ladder
+from ..ops.ladder import verify_kernel, verify_kernel_plain  # noqa: F401 (the JAX names)
 from . import ed25519_cpu as ref
 from .verifier import BatchItem
 
@@ -89,6 +98,13 @@ def _ge_l_np(s_bytes: np.ndarray) -> np.ndarray:
     return gt | undecided  # equal counts as >= L
 
 
+def _bits_msb_first_np(le_bytes: np.ndarray) -> np.ndarray:
+    """(n, 32) uint8 little-endian scalar -> (n, 256) int32 bits MSB
+    first — the ladder consumes the scalar top bit down."""
+    bits = np.unpackbits(le_bytes, axis=-1, bitorder="little")  # LSB first
+    return bits[:, ::-1].astype(np.int32)
+
+
 def _split_items(items: Sequence[BatchItem]):
     """Items -> (pub (n,32), r (n,32), s (n,32), msgs list, wellformed
     (n,) bool) with malformed rows zeroed — one join per field, no
@@ -111,9 +127,10 @@ def _split_items(items: Sequence[BatchItem]):
 
 
 def _kernel_launches() -> Dict[str, int]:
-    """The process's launch counts of the device pass's two kernels."""
+    """The process's launch counts of the device passes' kernels."""
     return {"fused_accumulate": comb.accumulate_kernel.launches,
-            "encode_verdict": comb.encode_kernel.launches}
+            "encode_verdict": comb.encode_kernel.launches,
+            "ladder_verify": ladder.ladder_kernel.launches}
 
 
 def _bucket_size(n: int) -> int:
@@ -311,6 +328,63 @@ def _pad_batch_arrays(arrays, n: int, size: int):
     return tuple(pz(a) for a in arrays)
 
 
+class PreparedBatch:
+    """Fixed-shape device-ready arrays of the ladder mode for one batch of
+    size n (pre-padding). Field order matches verify_kernel's signature;
+    the batch axis is trailing on every array."""
+
+    __slots__ = ("n", "a_y", "a_sign", "r_y", "r_sign", "s_bits", "k_bits", "precheck")
+
+    def __init__(self, n, a_y, a_sign, r_y, r_sign, s_bits, k_bits, precheck):
+        self.n = n
+        self.a_y = a_y
+        self.a_sign = a_sign
+        self.r_y = r_y
+        self.r_sign = r_sign
+        self.s_bits = s_bits
+        self.k_bits = k_bits
+        self.precheck = precheck
+
+    def arrays(self):
+        return (self.a_y, self.a_sign, self.r_y, self.r_sign, self.s_bits, self.k_bits,
+                self.precheck)
+
+    def padded(self, size: int) -> "PreparedBatch":
+        """Zero-pad every array's batch dim up to `size`. Padding rows get
+        precheck=False, so their (garbage) device verdicts are masked out."""
+        if size == self.n:
+            return self
+        return PreparedBatch(self.n, *_pad_batch_arrays(self.arrays(), self.n, size))
+
+
+def prepare_batch(items: Sequence[BatchItem]) -> PreparedBatch:
+    """Wire bytes -> the ladder mode's fixed-shape numpy arrays and host
+    precheck mask: A's and R's y limbs (17, n) and signs (n,), S's and k's
+    bits (256, n) MSB first, the precheck (n,).
+
+    Malformed items (wrong lengths) stay in the batch as dummy rows with
+    precheck=False — keeping shapes static is cheaper than compacting.
+    """
+    pub, r_raw, s_raw, msgs, ok = _split_items(items)
+    k_le = native.challenge_batch(r_raw, pub, msgs)
+
+    # host-detectable rejects: non-canonical S, non-canonical y encodings
+    ok &= ~_ge_l_np(s_raw)
+    ok &= ~_ge_p_np(pub)
+    ok &= ~_ge_p_np(r_raw)
+
+    return PreparedBatch(
+        len(items),
+        fe.bytes32_to_limbs_major_np(pub),
+        fe.sign_bits_np(pub),
+        fe.bytes32_to_limbs_major_np(r_raw),
+        fe.sign_bits_np(r_raw),
+        np.ascontiguousarray(_bits_msb_first_np(s_raw).T),
+        np.ascontiguousarray(_bits_msb_first_np(k_le).T),
+        ok,
+    )
+
+
 class CombBatch:
     """Device-ready arrays for the comb kernels (pre-padding); batch axis
     trailing on every array."""
@@ -430,9 +504,10 @@ class GpuVerifier:
     tables, zero doublings, no on-device decompression, one madd per
     window position) with `window`-bit windows (4, 5 or 6); `mode="comb"`
     keeps a 4-bit table of each key alone and a constant one of the base
-    point, for twice the madds. The ladder mode of the JAX package is not
-    ported yet. Table rows are dense or packed as `comb.ROW` stands when
-    the verifier is built.
+    point, for twice the madds; `mode="ladder"` keeps no key bank and
+    decompresses every key on the device (the self-contained Straus
+    ladder, for unbounded key sets). Table rows are dense or packed as
+    `comb.ROW` stands when the verifier is built.
 
     Pads drained batches to bucketed sizes, runs one device pass per
     chunk, and returns the per-item bitmap.
@@ -451,9 +526,6 @@ class GpuVerifier:
             raise ValueError(f"mode must be comb|fused|ladder, got {mode!r}")
         if window != WINDOW_BITS and mode != "fused":
             raise ValueError("window is a fused-mode knob")
-        if mode == "ladder":
-            raise ValueError("mode='ladder' (the keyless Straus ladder) is not ported "
-                             "yet: a later slice of the port brings it")
         if mode == "comb" and comb.PACKED:
             raise RuntimeError("the comb mode reads dense rows; packed rows "
                                "(use_row_packing) only feed the fused path")
@@ -466,9 +538,13 @@ class GpuVerifier:
         cap = 8
         if initial_keys is not None:
             cap = 1 << max(3, int(initial_keys - 1).bit_length())
-        self._bank = KeyBank(initial_capacity=cap, device=self.device, mode=mode,
-                             window=window)
-        self.config = comb.config_name(mode, window, self._bank.row)
+        self._bank = (
+            KeyBank(initial_capacity=cap, device=self.device, mode=mode, window=window)
+            if mode in ("comb", "fused")
+            else None
+        )
+        self.config = (comb.config_name(mode, window, self._bank.row)
+                       if self._bank is not None else mode)
         self._cpu_fb = None  # lazy batched native verifier (over-cap keys)
         # Device-side accounting, owned by the verifier: seconds are
         # dispatch->result time of each pass, measured by the caller that
@@ -510,7 +586,7 @@ class GpuVerifier:
         the one covering `max_sweep` items. Logs when the population
         exceeds the bank budget — over-cap keys verify on the per-batch
         CPU path forever."""
-        if len(pubkeys) > self._bank._max_keys:
+        if self._bank is not None and len(pubkeys) > self._bank._max_keys:
             log.warning(
                 "GpuVerifier bank clamped: %d published keys > max_keys=%d "
                 "(%s); over-cap keys verify on the CPU fallback path",
@@ -529,8 +605,9 @@ class GpuVerifier:
         """Register the known key population, then run one throwaway
         device pass per batch bucket (this builds the CUDA kernel on
         first use and primes the allocator at the final table shape)."""
-        for pk in pubkeys:
-            self._bank.lookup(pk)
+        if self._bank is not None:
+            for pk in pubkeys:
+                self._bank.lookup(pk)
         # wrong-length pubkey: _split_items masks the row and the bank
         # rejects it without registering — an all-zero 32-byte key would
         # decompress to a valid (order-4) point and occupy a bank slot
@@ -541,7 +618,8 @@ class GpuVerifier:
     def _record_shape(self, size: int) -> bool:
         """Track the (bucket, capacity) shape this dispatch hits; returns
         whether it is first-time (the device ledger's compile column)."""
-        sig = (self._mode, self._window, size, self._bank._cap)
+        cap = self._bank._cap if self._bank is not None else 0
+        sig = (self._mode, self._window, size, cap)
         self.bucket_hits[size] = self.bucket_hits.get(size, 0) + 1
         fresh = sig not in self.shape_signatures
         if fresh:
@@ -602,14 +680,22 @@ class GpuVerifier:
         return finish
 
     def prepare(self, items: Sequence[BatchItem]):
-        """The mode's host staging: (WireBatch or CombBatch, fallback)."""
+        """The mode's host staging: (WireBatch, CombBatch or PreparedBatch,
+        fallback). The ladder mode has no fallback: the device verifies
+        every key."""
+        if self._mode == "ladder":
+            return prepare_batch(items), []
         prepare = prepare_wire_batch if self._mode == "fused" else prepare_comb_batch
         return prepare(items, self._bank)
 
-    def device_pass(self, arrays: List[torch.Tensor], tables: torch.Tensor) -> torch.Tensor:
+    def device_pass(self, arrays: List[torch.Tensor],
+                    tables: Optional[torch.Tensor]) -> torch.Tensor:
         """The mode's device pass on the staged batch's tensors (a
-        WireBatch's in fused mode, a CombBatch's in comb mode, on this
-        verifier's device) and the bank's tables -> (B,) bool."""
+        WireBatch's in fused mode, a CombBatch's in comb mode, a
+        PreparedBatch's in ladder mode, on this verifier's device) and the
+        bank's tables (None in ladder mode) -> (B,) bool."""
+        if self._mode == "ladder":
+            return verify_kernel(*arrays)
         if self._mode == "fused":
             wire, a_idx, precheck = arrays
             return comb.fused_verify_wire_kernel(wire, a_idx, tables, precheck,
@@ -631,7 +717,7 @@ class GpuVerifier:
         prep, fallback = self.prepare(items)
         prep = prep.padded(size)
         arrays = prep.arrays()
-        tables = self._bank.device_tables()
+        tables = self._bank.device_tables() if self._bank is not None else None
         compile_fresh = self._record_shape(size)
         prep_s = time.perf_counter() - t_prep
         spans.record(spans.VERIFY_HOST_PREP, prep_s, n=len(items))

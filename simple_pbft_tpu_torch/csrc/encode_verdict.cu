@@ -149,6 +149,7 @@ encode_verdict_limbs_kernel(const int32_t* __restrict__ acc, const int32_t* __re
 // Test entry for the header's arithmetic on the card: a and b are (17, n)
 // limb-major 17 x 15 elements, out gets canonical 17 x 15 limbs of
 //   op 0: a * b   op 1: a^2   op 2: a^-1   op 3: a (canonical reduction)
+//   op 4: a^(2^252 - 3)   op 5: -a
 __global__ void field_op_kernel(int op, const int32_t* __restrict__ a,
                                 const int32_t* __restrict__ b, int32_t* __restrict__ out,
                                 int n) {
@@ -164,6 +165,8 @@ __global__ void field_op_kernel(int op, const int32_t* __restrict__ a,
     case 0: r = fe_mul(x, from15(lb)); break;
     case 1: r = fe_sq(x); break;
     case 2: r = fe_invert(x); break;
+    case 4: r = fe_pow22523(x); break;
+    case 5: r = fe_reduce(fe_neg(x)); break;  // fe_canonical takes a carried element
     default: r = x; break;
   }
   to15(fe_canonical(r), lo);
@@ -198,7 +201,7 @@ extern "C" int encode_verdict_limbs_launch(const int32_t* acc, const int32_t* r_
 
 extern "C" int field_op_launch(int op, const int32_t* a, const int32_t* b, int32_t* out,
                                int n, void* stream) {
-  if (n <= 0 || op < 0 || op > 3) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || op < 0 || op > 5) return (int)cudaErrorInvalidValue;
   field_op_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
       op, a, b, out, n);
   return (int)cudaGetLastError();

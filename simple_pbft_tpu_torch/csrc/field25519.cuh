@@ -71,6 +71,14 @@ FE_FN fe fe_sub(const fe& a, const fe& b) {
   return r;
 }
 
+// -a: the limbs negated, so the bounds are a's.
+FE_FN fe fe_neg(const fe& a) {
+  fe r;
+#pragma unroll
+  for (int k = 0; k < 10; ++k) r.v[k] = -a.v[k];
+  return r;
+}
+
 // ref10's carry chain over 64-bit column sums: rounding carries, two
 // independent chains interleaved (0..4 and 4..9), the top carry folded back
 // times 19 (2^255 = 19 mod p). Output limbs up to about 2^25 / 2^24.
@@ -97,6 +105,15 @@ FE_FN fe fe_carry(int64_t h[10]) {
 #pragma unroll
   for (int k = 0; k < 10; ++k) r.v[k] = (int32_t)h[k];
   return r;
+}
+
+// a with its limbs carried: a sum or difference of a few carried elements,
+// or a canonical one, back to the carried bounds.
+FE_FN fe fe_reduce(const fe& a) {
+  int64_t h[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) h[k] = a.v[k];
+  return fe_carry(h);
 }
 
 // Schoolbook 10 x 10 product. Limb i times limb j lands on column i + j;
@@ -149,21 +166,36 @@ FE_FN fe fe_sqn(fe x, int n) {
   return x;
 }
 
+// ref10's shared prefix of the two exponentiation chains: z^(2^250 - 1),
+// and z^11 in `z11`.
+FE_FN fe fe_chain250(const fe& z, fe& z11) {
+  const fe z2 = fe_sq(z);                           // 2
+  const fe z9 = fe_mul(z, fe_sqn(z2, 2));           // 9
+  z11 = fe_mul(z2, z9);                             // 11
+  const fe z5 = fe_mul(z9, fe_sq(z11));             // 2^5 - 1
+  const fe z10 = fe_mul(fe_sqn(z5, 5), z5);         // 2^10 - 1
+  const fe z20 = fe_mul(fe_sqn(z10, 10), z10);      // 2^20 - 1
+  const fe z40 = fe_mul(fe_sqn(z20, 20), z20);      // 2^40 - 1
+  const fe z50 = fe_mul(fe_sqn(z40, 10), z10);      // 2^50 - 1
+  const fe z100 = fe_mul(fe_sqn(z50, 50), z50);     // 2^100 - 1
+  const fe z200 = fe_mul(fe_sqn(z100, 100), z100);  // 2^200 - 1
+  return fe_mul(fe_sqn(z200, 50), z50);             // 2^250 - 1
+}
+
 // x^(p - 2) = x^(2^255 - 21): ref10's chain of 254 squarings and 11
 // multiplies (0 -> 0).
 FE_FN fe fe_invert(const fe& z) {
-  const fe z2 = fe_sq(z);                        // 2
-  const fe z9 = fe_mul(z, fe_sqn(z2, 2));        // 9
-  const fe z11 = fe_mul(z2, z9);                 // 11
-  const fe z5 = fe_mul(z9, fe_sq(z11));          // 2^5 - 1
-  const fe z10 = fe_mul(fe_sqn(z5, 5), z5);      // 2^10 - 1
-  const fe z20 = fe_mul(fe_sqn(z10, 10), z10);   // 2^20 - 1
-  const fe z40 = fe_mul(fe_sqn(z20, 20), z20);   // 2^40 - 1
-  const fe z50 = fe_mul(fe_sqn(z40, 10), z10);   // 2^50 - 1
-  const fe z100 = fe_mul(fe_sqn(z50, 50), z50);  // 2^100 - 1
-  const fe z200 = fe_mul(fe_sqn(z100, 100), z100);  // 2^200 - 1
-  const fe z250 = fe_mul(fe_sqn(z200, 50), z50);    // 2^250 - 1
-  return fe_mul(fe_sqn(z250, 5), z11);              // 2^255 - 21
+  fe z11;
+  const fe z250 = fe_chain250(z, z11);
+  return fe_mul(fe_sqn(z250, 5), z11);  // 2^255 - 21
+}
+
+// x^((p - 5) / 8) = x^(2^252 - 3), the square-root helper exponent:
+// ref10's fe_pow22523, 251 squarings and 11 multiplies.
+FE_FN fe fe_pow22523(const fe& z) {
+  fe z11;
+  const fe z250 = fe_chain250(z, z11);
+  return fe_mul(fe_sqn(z250, 2), z);  // 2^252 - 3
 }
 
 // The unique representative in [0, p), every limb in [0, 2^width): ref10's

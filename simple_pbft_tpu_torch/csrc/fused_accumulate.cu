@@ -62,7 +62,7 @@
 // npos/P plus log2 P additions, and puts P times as many warps on the
 // schedulers.
 
-#include "field25519.cuh"
+#include "edwards25519.cuh"
 
 namespace k1 {
 
@@ -79,19 +79,9 @@ constexpr int MODE_INDEX = 0, MODE_WIRE = 1, MODE_COMB = 2;
 template <int ROW>
 constexpr int ROW_VEC = ROW == ROW_DENSE ? 13 : 7;
 
-struct point {
-  fe x, y, z, t;
-};
-
-FE_FN point identity() {
-  return {fe25519::fe_zero(), fe25519::fe_one(), fe25519::fe_one(), fe25519::fe_zero()};
-}
-
-// 2d mod p in radix 2^25.5 (ref10's d2).
-FE_FN fe d2() {
-  return {{-21827239, -5839606, -30745221, 13898782, 229458, 15978800, -12551817,
-           -6495438, 29715968, 9444199}};
-}
+using ed25519::identity;
+using ed25519::point;
+using ed25519::point_add;
 
 // ref10 ge_madd: p += the affine Niels point (y+x, y-x, 2dxy).
 FE_FN void madd(point& p, const fe& ypx, const fe& ymx, const fe& xy2d) {
@@ -108,22 +98,6 @@ FE_FN void madd(point& p, const fe& ypx, const fe& ymx, const fe& xy2d) {
   p.y = fe_mul(g, h);
   p.z = fe_mul(f, g);
   p.t = fe_mul(e, h);
-}
-
-// Unified extended addition add-2008-hwcd-3 with 2d (complete on Ed25519),
-// as ops/edwards.py point_add.
-FE_FN point point_add(const point& p, const point& q) {
-  using namespace fe25519;
-  const fe a = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x));
-  const fe b = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x));
-  const fe c = fe_mul(fe_mul(p.t, d2()), q.t);
-  const fe zz = fe_mul(p.z, q.z);
-  const fe d = fe_add(zz, zz);
-  const fe e = fe_sub(b, a);
-  const fe f = fe_sub(d, c);
-  const fe g = fe_add(d, c);
-  const fe h = fe_add(b, a);
-  return {fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
 }
 
 // One packed element (9 words) -> its field element.

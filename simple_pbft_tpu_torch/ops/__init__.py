@@ -1,4 +1,5 @@
 """Device numerics of the port: GF(2^255-19) limb arithmetic
-(``field25519``) and the fused comb-table double-scalar multiplication
-(``comb``), as int32 PyTorch tensor code with one hand-written CUDA
-kernel for the mixed-add accumulation."""
+(``field25519``), Edwards25519 points (``edwards``), the fused and comb
+double-scalar multiplications with their hand-written CUDA kernels
+(``comb``), and the ladder mode's keyless verify with its kernel
+(``ladder``), as int32 PyTorch tensor code."""

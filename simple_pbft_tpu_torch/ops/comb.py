@@ -37,12 +37,16 @@ first use:
   comparison with R's encoding (R's wire bytes, or in comb mode R's
   staged limbs and sign).
 
-Both compute in radix 2^25.5 (``csrc/field25519.cuh``) and read and write
-the 17×15 limbs of ``field25519.py`` at their edges. On CPU tensors the
-same functions run their plain versions (`madd_loop_plain`,
-`comb_accumulate_plain`, `wire_index_plain`, `encode_and_compare_plain`):
-the same formulas in the same order, so their results equal the kernels'
-after canonical reduction.
+The ladder mode's kernel (K9) is bound in ``ops/ladder.py`` beside its
+plain version, on the `_CudaKernel` base defined here.
+
+Both compute in radix 2^25.5 (``csrc/field25519.cuh``, points in
+``csrc/edwards25519.cuh``) and read and write the 17×15 limbs of
+``field25519.py`` at their edges. On CPU tensors the same functions run
+their plain versions (`madd_loop_plain`, `comb_accumulate_plain`,
+`wire_index_plain`, `encode_and_compare_plain`): the same formulas in
+the same order, so their results equal the kernels' after canonical
+reduction.
 
 Everything stays constant-shape: npos window positions whatever the scalar,
 identity entries for zero nibbles, verdicts masked by host prechecks.
@@ -494,7 +498,8 @@ def encode_and_compare_plain(
 # ---------------------------------------------------------------------------
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-FIELD_HEADER = os.path.join(_CSRC, "field25519.cuh")
+# the headers every kernel may include: field25519.cuh, edwards25519.cuh
+HEADERS = tuple(os.path.join(_CSRC, h) for h in ("field25519.cuh", "edwards25519.cuh"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -529,7 +534,7 @@ def _check_dtype(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
 
 
 class _CudaKernel:
-    """Build-at-first-use and ctypes binding shared by the two kernels.
+    """Build-at-first-use and ctypes binding shared by the kernels.
 
     ``launches`` counts kernel launches of the path and ``launches_by``
     the same launches by configuration or entry; both grow only where a
@@ -556,7 +561,7 @@ class _CudaKernel:
         self.launches_by[key] = self.launches_by.get(key, 0) + 1
 
     def library(self) -> ctypes.CDLL:
-        """Build (if the source or the header is newer than the library)
+        """Build (if the source or a header is newer than the library)
         and load."""
         with self._lock:
             if self._lib is None:
@@ -567,7 +572,7 @@ class _CudaKernel:
         from .. import build_dir
 
         so = os.path.join(build_dir(), self.LIB_NAME)
-        newest = max(os.path.getmtime(p) for p in (self.SOURCE, FIELD_HEADER))
+        newest = max(os.path.getmtime(p) for p in (self.SOURCE, *HEADERS))
         if not (os.path.exists(so) and os.path.getmtime(so) >= newest):
             # per-process temp name + atomic rename: concurrent builders
             # never load a half-written library
@@ -745,7 +750,7 @@ class EncodeVerdictKernel(_CudaKernel):
     SOURCE = os.path.join(_CSRC, "encode_verdict.cu")
     LIB_NAME = "libencode_verdict.so"
 
-    FIELD_OPS = {"mul": 0, "sq": 1, "invert": 2, "canonical": 3}
+    FIELD_OPS = {"mul": 0, "sq": 1, "invert": 2, "canonical": 3, "pow22523": 4, "neg": 5}
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         lib.encode_verdict_launch.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int, _P]
@@ -818,7 +823,7 @@ class EncodeVerdictKernel(_CudaKernel):
     def field_op(self, op: str, a: torch.Tensor, b: Optional[torch.Tensor] = None):
         """Test entry for the field header on the card (not a launch of the
         path, so not counted): a, b (17, n) int32 17×15 limbs -> canonical
-        (17, n) limbs of a·b, a², a⁻¹ or a."""
+        (17, n) limbs of a·b, a², a⁻¹, a, a^(2^252 − 3) or −a."""
         b = a if b is None else b
         dev = _check_cuda(a, b)
         _check_dtype(a, torch.int32, "a")

@@ -59,6 +59,8 @@ def _limbs_to_int_np(limbs: np.ndarray) -> int:
     return v
 
 
+ZERO = _int_to_limbs_np(0)
+ONE = _int_to_limbs_np(1)
 P_LIMBS = _int_to_limbs_np(P_INT)
 # 2p as limbs: only limb 0 differs from 2*MASK
 TWO_P_LIMBS = np.array([2 * (2**RADIX - 19)] + [2 * MASK] * (NLIMB - 1), np.int32)
@@ -68,7 +70,7 @@ TWO_P_LIMBS = np.array([2 * (2**RADIX - 19)] + [2 * MASK] * (NLIMB - 1), np.int3
 def _limb_const(name: str, device: torch.device) -> torch.Tensor:
     """A (17,) int32 limb constant on `device`, uploaded once per device
     (a fresh host->device copy per field op would stall the stream)."""
-    table = {"p": P_LIMBS, "two_p": TWO_P_LIMBS}
+    table = {"p": P_LIMBS, "two_p": TWO_P_LIMBS, "zero": ZERO, "one": ONE}
     return torch.as_tensor(table[name], dtype=DTYPE, device=device)
 
 
@@ -227,6 +229,10 @@ mul = mul_skew
 
 # The exponentiation chains' multiply.
 _chain_mul = mul_skew
+
+
+def sq(a: torch.Tensor) -> torch.Tensor:
+    return mul(a, a)
 
 
 def mul_small(a: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """The CUDA kernels' arithmetic, compiled for the host, against the port's
 plain PyTorch versions and Python bigints.
 
-Everything in ``csrc/field25519.cuh`` and the per-lane functions of
-``csrc/fused_accumulate.cu`` and ``csrc/encode_verdict.cu`` are
-``__host__ __device__``: without nvcc the kernels and launchers drop out
+Everything in ``csrc/field25519.cuh`` and ``csrc/edwards25519.cuh`` and the
+per-lane functions of ``csrc/fused_accumulate.cu``, ``csrc/encode_verdict.cu``
+and ``csrc/ladder_verify.cu`` are ``__host__ __device__``: without nvcc the kernels and launchers drop out
 and a host C++ compiler builds the rest. A small harness below drives
 those functions the way the kernels do (a lane's positions split over P
 parts, the pairwise combine tree, the per-lane verdict) and the results
@@ -18,7 +18,11 @@ are held against:
   in comb mode;
 - `wire_index_plain`, on edge bytes, at every window width;
 - `encode_and_compare_plain`, verdicts and canonical affine (x, y), with R
-  as wire bytes and as the comb path's staged limbs and sign.
+  as wire bytes and as the comb path's staged limbs and sign;
+- `verify_kernel_plain`, for the ladder kernel's lane (decompression,
+  256-step ladder, projective comparison): verdicts and canonical affine
+  (x, y) of the accumulator, on the smoke's adversarial rows and on
+  signed items.
 
 What only the card can show (the shuffles, cp.async, the launch) is in
 ``chip_smoke.py`` and the tests marked ``cuda``.
@@ -45,6 +49,7 @@ HARNESS = r"""
 #include <vector>
 #include "fused_accumulate.cu"
 #include "encode_verdict.cu"
+#include "ladder_verify.cu"
 
 extern "C" void h_field_op(int op, const int32_t* a, const int32_t* b, int32_t* out, int n) {
   using namespace fe25519;
@@ -56,6 +61,8 @@ extern "C" void h_field_op(int op, const int32_t* a, const int32_t* b, int32_t* 
     if (op == 0) r = fe_mul(x, from15(lb));
     if (op == 1) r = fe_sq(x);
     if (op == 2) r = fe_invert(x);
+    if (op == 4) r = fe_pow22523(x);
+    if (op == 5) r = fe_reduce(fe_neg(x));
     to15(fe_canonical(r), lo);
     for (int i = 0; i < 17; ++i) out[i * n + lane] = lo[i];
   }
@@ -123,6 +130,15 @@ extern "C" void h_encode_verdict_limbs(const int32_t* acc, const int32_t* r_y,
   }
 }
 
+extern "C" void h_ladder(const int32_t* a_y, const int32_t* a_sign, const int32_t* r_y,
+                         const int32_t* r_sign, const int32_t* s_bits, const int32_t* k_bits,
+                         const uint8_t* pre, uint8_t* verdict, int32_t* affine, int batch) {
+  for (int lane = 0; lane < batch; ++lane)
+    verdict[lane] = ladder::verify_lane(a_y + lane, a_sign[lane], r_y + lane, r_sign[lane],
+                                        s_bits + lane, k_bits + lane, batch, pre[lane] != 0,
+                                        affine + lane);
+}
+
 extern "C" void h_encode_verdict(const int32_t* acc, const uint8_t* wire, const uint8_t* pre,
                                  uint8_t* verdict, int32_t* affine, int batch) {
   for (int lane = 0; lane < batch; ++lane) {
@@ -161,6 +177,7 @@ def lib(tmp_path_factory):
     h.h_wire_rows.argtypes = [vp, vp, vp, ci, ci, ci]
     h.h_encode_verdict.argtypes = [vp, vp, vp, vp, vp, ci]
     h.h_encode_verdict_limbs.argtypes = [vp, vp, vp, vp, vp, vp, ci]
+    h.h_ladder.argtypes = [vp] * 9 + [ci]
     return h
 
 
@@ -200,16 +217,17 @@ def _edge_operands():
     return np.ascontiguousarray(np.concatenate([a, weak, top], axis=1))
 
 
-@pytest.mark.parametrize("op", ["mul", "sq", "invert", "canonical"])
+@pytest.mark.parametrize("op", ["mul", "sq", "invert", "canonical", "pow22523", "neg"])
 def test_header_field_ops_match_bigints(lib, op):
     a = _edge_operands()
     b = np.ascontiguousarray(a[:, ::-1])
-    code = {"mul": 0, "sq": 1, "invert": 2, "canonical": 3}[op]
+    code = {"mul": 0, "sq": 1, "invert": 2, "canonical": 3, "pow22523": 4, "neg": 5}[op]
     out = _field_op(lib, code, a, b)
     assert out.min() >= 0 and out.max() <= fe.MASK
     for i in range(a.shape[1]):
         x, y = _value(a, i), _value(b, i)
-        want = {"mul": x * y, "sq": x * x, "invert": pow(x, P - 2, P), "canonical": x}[op] % P
+        want = {"mul": x * y, "sq": x * x, "invert": pow(x, P - 2, P), "canonical": x,
+                "pow22523": pow(x, 2**252 - 3, P), "neg": -x}[op] % P
         assert _value(out, i) == want, (op, i)
 
 
@@ -416,3 +434,33 @@ def test_verdict_limbs_lane_equals_plain(lib, tables):
     assert want_ok.tolist() == [True, False, False, False, True, True, False, False]
     np.testing.assert_array_equal(xy, want_xy.numpy())
 
+
+
+def test_ladder_lane_equals_plain(lib):
+    """The ladder kernel's lane, compiled for the host, against
+    verify_kernel_plain on the 8 adversarial rows of crypto/adversarial.py and 8 signed
+    items (one corrupted in four): the same verdicts and, exactly, the same
+    canonical affine (x, y) of [S]B + [k](-A), also where A is no point."""
+    from simple_pbft_tpu_torch.crypto import gpu_verifier as gv
+    from simple_pbft_tpu_torch.crypto.adversarial import ladder_adversarial_items
+    from simple_pbft_tpu_torch.crypto.verifier import BatchItem
+
+    items = [it for _, it in ladder_adversarial_items()]
+    for j in range(8):
+        seed, msg = bytes([j + 1]) * 32, b"host ladder %d" % j
+        sig = bytearray(ref.sign(seed, msg))
+        if j % 4 == 3:
+            sig[40] ^= 8
+        items.append(BatchItem(ref.public_key(seed), msg, bytes(sig)))
+    arrays = [np.ascontiguousarray(a) for a in gv.prepare_batch(items).arrays()]
+    batch = len(items)
+    verdict = np.zeros(batch, np.uint8)
+    xy = np.zeros((2 * fe.NLIMB, batch), np.int32)
+    lib.h_ladder(*[_ptr(a) for a in arrays[:6]], _ptr(arrays[6].astype(np.uint8)),
+                 _ptr(verdict), _ptr(xy), batch)
+    want_ok, want_xy = gv.verify_kernel_plain(*[torch.from_numpy(a) for a in arrays],
+                                              affine=True)
+    assert verdict.astype(bool).tolist() == want_ok.tolist()
+    assert want_ok.tolist() == [ref.verify(i.pubkey, i.msg, i.sig) for i in items]
+    assert sum(want_ok.tolist()) == 8  # two adversarial rows and six signed
+    np.testing.assert_array_equal(xy, want_xy.numpy())

@@ -15,7 +15,10 @@ a card and no JAX it runs on its own:
   and 6 bits in dense and packed rows, in wire and index mode, and the
   comb mode), the kernel equals its plain version with the same P;
 - the verdict kernel's comb entry (R as staged limbs and sign) equals
-  `encode_and_compare_plain`.
+  `encode_and_compare_plain`;
+- the ladder kernel K9 equals `verify_kernel_plain`: the same verdicts and
+  the same canonical affine accumulators, on signed items with
+  corruptions and the smoke's adversarial rows.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ import torch
 from simple_pbft_tpu_torch.crypto import ed25519_cpu as ref
 from simple_pbft_tpu_torch.ops import comb
 from simple_pbft_tpu_torch.ops import field25519 as fe
+from simple_pbft_tpu_torch.ops import ladder
 
 
 @pytest.fixture(scope="module")
@@ -185,3 +189,44 @@ def test_verdict_kernel_comb_entry_equals_plain(batch):
     assert torch.equal(ok, want_ok)
     assert torch.equal(got_xy, want_xy)
 
+
+
+def _ladder_items(batch: int):
+    """The adversarial rows of crypto/adversarial.py, then items of 8 signers with
+    every third one corrupted (a flipped S or R byte, another message)."""
+    from simple_pbft_tpu_torch.crypto.adversarial import ladder_adversarial_items
+    from simple_pbft_tpu_torch.crypto.verifier import BatchItem
+
+    items = [it for _, it in ladder_adversarial_items()][:batch]
+    seeds = [bytes([i + 1]) * 32 for i in range(8)]
+    j = 0
+    while len(items) < batch:
+        seed, msg = seeds[j % 8], b"ladder %d" % j
+        sig = bytearray(ref.sign(seed, msg))
+        if j % 3 == 1:
+            sig[j % 64] ^= 1 << (j % 8)
+        if j % 3 == 2:
+            msg += b"!"
+        items.append(BatchItem(ref.public_key(seed), msg, bytes(sig)))
+        j += 1
+    return items
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8, 512])
+def test_ladder_kernel_equals_plain(batch):
+    """K9 against verify_kernel_plain, exactly: verdicts and canonical
+    affine (x, y) of [S]B + [k](-A); one counted launch."""
+    from simple_pbft_tpu_torch.crypto import gpu_verifier as gv
+
+    dev = _need_card()
+    items = _ladder_items(batch)
+    arrays = [torch.from_numpy(a).to(dev) for a in gv.prepare_batch(items).arrays()]
+    before = ladder.ladder_kernel.launches_by.get("ladder_verify", 0)
+    ok, xy = ladder.ladder_kernel(*arrays, affine=True)
+    torch.cuda.synchronize()
+    assert ladder.ladder_kernel.launches_by["ladder_verify"] == before + 1
+    want_ok, want_xy = gv.verify_kernel_plain(*arrays, affine=True)
+    assert torch.equal(ok, want_ok)
+    assert torch.equal(xy, want_xy)
+    assert ok.cpu().tolist() == [ref.verify(i.pubkey, i.msg, i.sig) for i in items]

@@ -231,8 +231,11 @@ def test_negate_rows_raises_runtime_error_on_packed_layout():
 
 
 def test_ladder_mode_and_bad_configs_raise():
-    with pytest.raises(ValueError, match="later slice"):
-        gv.GpuVerifier(device="cpu", mode="ladder")
+    """The ladder mode is ported: it builds, and like JAX's it raises on a
+    window other than 4 (a fused-mode knob)."""
+    assert gv.GpuVerifier(device="cpu", mode="ladder").config == "ladder"
+    with pytest.raises(ValueError, match="fused-mode knob"):
+        gv.GpuVerifier(device="cpu", mode="ladder", window=5)
     with pytest.raises(ValueError, match="fused-mode knob"):
         gv.GpuVerifier(device="cpu", mode="comb", window=5)
     with pytest.raises(ValueError):
