@@ -11,17 +11,23 @@ then, printing one JSON line per phase:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc / g++ build seconds and the kernels' register reports;
-3. field    — the kernels' field header (csrc/field25519.cuh) on the
-              card, through the verdict library's test entry: multiply,
-              square, inversion, canonical reduction, pow22523 and
-              negation against ops/field25519.py on edge and random
-              inputs, exactly;
+3. field    — the kernels' field headers on the card, through the
+              verdict library's test entry: csrc/field25519.cuh's
+              multiply, square, inversion, canonical reduction,
+              pow22523 and negation (one thread an element), and
+              csrc/field25519_coop.cuh's multiply, square and inversion
+              (5 threads an element), against ops/field25519.py on edge
+              and random inputs, exactly;
 4. kernel   — at every batch bucket, the accumulate kernel (index mode on
               random windows, wire mode on random wire bytes, each with
               the P its wrapper picks) and the verdict kernel against
               their plain PyTorch versions: exact equality in canonical
-              limbs; the kernels' and the plain versions' times, and the
-              bounds;
+              limbs; the kernels' and the plain versions' times (the
+              verdict kernel's also over 50 back-to-back calls, which
+              hide its wrapper's host time), and the
+              bounds; then the verdict kernel alone at B = 7 and 8,193,
+              which leave a partial group of 5 threads, a partial warp
+              and a partial block;
 5. modes    — the accumulate kernel's seven configurations: fused
               windows of 4, 5 and 6 bits in dense and packed rows, and the
               comb mode. For each, at B = 8, 512 and 8192, K1 against its
@@ -145,8 +151,10 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps, warmup=1):
-    """Median device time of `fn` in ms, CUDA events around each call."""
+def cuda_ms(fn, reps, warmup=1, calls=1):
+    """Median device time of `fn` in ms, CUDA events around each call; with
+    `calls` > 1, around that many back-to-back calls, per call, so that a
+    wrapper's host time hides behind the previous call's kernel."""
     import torch
 
     for _ in range(warmup):
@@ -157,10 +165,11 @@ def cuda_ms(fn, reps, warmup=1):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -255,15 +264,16 @@ def accumulate_bound(idx, input_bytes, payload=ROW_PAYLOAD_BYTES):
 def tail_bound(batch, device, lane_bytes=TAIL_BYTES_PER_LANE):
     """Least time for the verdict tail: the JAX function's work (batch
     inversion) and bytes (`lane_bytes` a lane: R as wire bytes, or as the
-    comb path's limbs). `design_products` is what the per-lane inversion
-    spends instead."""
+    comb path's limbs). `design_products` is what the kernel spends
+    instead: a lane's own chain and two multiplies, each of them (the
+    squares too) 100 products spread as 20 over each of the group's 5
+    threads, which leaves a square's symmetry unused."""
     chains = -(-batch // CHAIN_WIDTH)
     products = ((batch * TAIL_MULS_PER_LANE + chains * CHAIN_MULS) * WIDE_PRODUCTS_PER_MUL
                 + chains * CHAIN_SQUARES * SQ_PRODUCTS)
     return {
         **_bound(batch * lane_bytes, products, device),
-        "design_products": batch * (CHAIN_SQUARES * SQ_PRODUCTS
-                                    + (CHAIN_MULS + 2) * WIDE_PRODUCTS_PER_MUL),
+        "design_products": batch * (CHAIN_SQUARES + CHAIN_MULS + 2) * WIDE_PRODUCTS_PER_MUL,
     }
 
 
@@ -276,7 +286,8 @@ def canonical_point(p):
 
 
 def phase_field():
-    """The header's arithmetic on the card against ops/field25519.py."""
+    """The headers' arithmetic on the card against ops/field25519.py: one
+    thread an element (ops 0-5) and a group of 5 (the coop_* ops)."""
     import numpy as np
     import torch
 
@@ -299,7 +310,9 @@ def phase_field():
     b = a.flip(1).contiguous()
     plain = {"mul": lambda: fe.mul(a, b), "sq": lambda: fe.mul(a, a),
              "invert": lambda: fe.invert(a), "canonical": lambda: a,
-             "pow22523": lambda: fe.pow22523(a), "neg": lambda: fe.neg(a)}
+             "pow22523": lambda: fe.pow22523(a), "neg": lambda: fe.neg(a),
+             "coop_mul": lambda: fe.mul(a, b), "coop_sq": lambda: fe.mul(a, a),
+             "coop_invert": lambda: fe.invert(a)}
     rows = {}
     for op, fn in plain.items():
         got = comb.encode_kernel.field_op(op, a, b)
@@ -341,7 +354,6 @@ def phase_kernel():
     from simple_pbft_tpu_torch.crypto import ed25519_cpu as ref
     from simple_pbft_tpu_torch.crypto.gpu_verifier import BUCKETS, KeyBank
     from simple_pbft_tpu_torch.ops import comb
-    from simple_pbft_tpu_torch.ops import field25519 as fe
 
     dev = torch.device("cuda")
     n_keys = 64
@@ -375,26 +387,9 @@ def phase_kernel():
         torch.cuda.synchronize()
         err_wire = int((acc.reshape(4, 17, batch).long() - want_w.long()).abs().max().item())
         check(err_wire == 0, f"accumulate (wire mode) != plain at B={batch}")
-        # verdict tail: every fourth lane's R is its own point's encoding
-        pre = torch.from_numpy(rng.random(batch) < 0.9).to(dev)
+        wire, pre, ok, err_tail = _verdict_check(acc, wire, rng)
         p = acc.reshape(4, 17, batch)
-        _, xy = comb.encode_and_compare_plain(p, *comb.r_from_wire(wire), pre, affine=True)
-        xy = xy.cpu().numpy()
-        wire_np = wire.cpu().numpy()
-        for lane in range(0, batch, 4):
-            x = fe._limbs_to_int_np(xy[:17, lane:lane + 1])
-            y = fe._limbs_to_int_np(xy[17:, lane:lane + 1])
-            wire_np[lane, 64:] = np.frombuffer((y | (x & 1) << 255).to_bytes(32, "little"),
-                                               np.uint8)
-        wire = torch.from_numpy(wire_np).to(dev)
-        pre[0::4] = True
         r_y, r_sign = comb.r_from_wire(wire)
-        want_ok, want_xy = comb.encode_and_compare_plain(p, r_y, r_sign, pre, affine=True)
-        ok, got_xy = comb.encode_kernel(acc, wire, pre, affine=True)
-        torch.cuda.synchronize()
-        err_tail = int((got_xy.long() - want_xy.long()).abs().max().item())
-        check(torch.equal(ok, want_ok) and err_tail == 0, f"verdict kernel != plain at B={batch}")
-        check(int(ok.sum()) > 0, f"no lane matched at B={batch}")
         rows[batch] = {
             "parts": parts,
             "index": {
@@ -414,16 +409,66 @@ def phase_kernel():
             "verdict": {
                 "max_abs_err": err_tail, "matches": int(ok.sum()),
                 "kernel_ms": cuda_ms(lambda: comb.encode_kernel(acc, wire, pre), 20, 3),
+                "back_to_back_ms": cuda_ms(lambda: comb.encode_kernel(acc, wire, pre), 5, 3,
+                                           BACK_TO_BACK),
                 "plain_ms": cuda_ms(lambda: comb.encode_and_compare_plain(
                     p, r_y, r_sign, pre), 2, 1),
                 **tail_bound(batch, dev),
             },
         }
+    # the verdict kernel at sizes that leave a partial group, warp and block
+    partial = {}
+    for batch in PARTIAL_BATCHES:
+        wire = torch.from_numpy(rng.integers(0, 256, (batch, 96), dtype=np.uint8)).to(dev)
+        a_idx = torch.from_numpy(rng.integers(0, n_keys, batch).astype(np.int32)).to(dev)
+        acc = k1.wire(wire, a_idx, f_flat)
+        wire, pre, ok, err_tail = _verdict_check(acc, wire, rng)
+        partial[str(batch)] = {
+            "max_abs_err": err_tail, "matches": int(ok.sum()),
+            "kernel_ms": cuda_ms(lambda: comb.encode_kernel(acc, wire, pre), 20, 3),
+            "back_to_back_ms": cuda_ms(lambda: comb.encode_kernel(acc, wire, pre), 5, 3,
+                                       BACK_TO_BACK),
+        }
     emit("kernel", keys=n_keys, resident_threads=k1.resident_threads(dev),
          launches_in_phase={"fused_accumulate": k1.launches,
                             "encode_verdict": comb.encode_kernel.launches},
-         by_batch={str(b): v for b, v in rows.items()})
+         by_batch={str(b): v for b, v in rows.items()}, verdict_partial=partial)
     return rows
+
+
+def _verdict_check(acc, wire, rng):
+    """The verdict kernel against encode_and_compare_plain on K1's
+    (4·17, B) accumulator, with every fourth lane's R its own point's
+    encoding (and its precheck true) and 9 in 10 prechecks true elsewhere:
+    exact in verdicts and canonical affine limbs, and some lane matched.
+    -> (the wire with those R, precheck, verdicts, max abs error)."""
+    import numpy as np
+    import torch
+
+    from simple_pbft_tpu_torch.ops import comb
+    from simple_pbft_tpu_torch.ops import field25519 as fe
+
+    batch = wire.shape[0]
+    pre = torch.from_numpy(rng.random(batch) < 0.9).to(wire.device)
+    p = acc.reshape(4, 17, batch)
+    _, xy = comb.encode_and_compare_plain(p, *comb.r_from_wire(wire), pre, affine=True)
+    xy = xy.cpu().numpy()
+    wire_np = wire.cpu().numpy()
+    for lane in range(0, batch, 4):
+        x = fe._limbs_to_int_np(xy[:17, lane:lane + 1])
+        y = fe._limbs_to_int_np(xy[17:, lane:lane + 1])
+        wire_np[lane, 64:] = np.frombuffer((y | (x & 1) << 255).to_bytes(32, "little"),
+                                           np.uint8)
+    wire = torch.from_numpy(wire_np).to(wire.device)
+    pre[0::4] = True
+    want_ok, want_xy = comb.encode_and_compare_plain(p, *comb.r_from_wire(wire), pre,
+                                                     affine=True)
+    ok, got_xy = comb.encode_kernel(acc, wire, pre, affine=True)
+    torch.cuda.synchronize()
+    err = int((got_xy.long() - want_xy.long()).abs().max().item())
+    check(torch.equal(ok, want_ok) and err == 0, f"verdict kernel != plain at B={batch}")
+    check(int(ok.sum()) > 0, f"no lane matched at B={batch}")
+    return wire, pre, ok, err
 
 
 def _corrupt(items, rng, count):
@@ -497,6 +542,12 @@ def _population(name):
         _POPULATIONS[name] = ([p for p, _ in signers], items, bad, oracle, sign_s)
     return _POPULATIONS[name]
 
+
+# batch sizes of the kernel phase's extra verdict check: 7 = one warp's 6
+# lanes and 1, 8193 = 341 blocks of 24 lanes and 9
+PARTIAL_BATCHES = (7, 8193)
+# calls a timing of the verdict kernel's back-to-back launches spans
+BACK_TO_BACK = 50
 
 # (mode, window bits, packed rows): the accumulate kernel's configurations,
 # then the ladder mode's, which runs K9 alone
@@ -604,6 +655,8 @@ def _mode_kernels(mode, wbits, verifier, seed):
             row["verdict_limbs"].update(
                 kernel_ms=cuda_ms(lambda: comb.encode_kernel.limbs(acc, r_y, r_sign, pre),
                                   20, 3),
+                back_to_back_ms=cuda_ms(lambda: comb.encode_kernel.limbs(acc, r_y, r_sign, pre),
+                                        5, 3, BACK_TO_BACK),
                 plain_ms=cuda_ms(lambda: comb.encode_and_compare_plain(p, r_y, r_sign, pre),
                                  2, 1),
                 **tail_bound(batch, dev, LIMB_TAIL_BYTES_PER_LANE))

@@ -498,8 +498,10 @@ def encode_and_compare_plain(
 # ---------------------------------------------------------------------------
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-# the headers every kernel may include: field25519.cuh, edwards25519.cuh
-HEADERS = tuple(os.path.join(_CSRC, h) for h in ("field25519.cuh", "edwards25519.cuh"))
+# the headers every kernel may include: field25519.cuh, edwards25519.cuh,
+# field25519_coop.cuh
+HEADERS = tuple(os.path.join(_CSRC, h)
+                for h in ("field25519.cuh", "edwards25519.cuh", "field25519_coop.cuh"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -750,7 +752,11 @@ class EncodeVerdictKernel(_CudaKernel):
     SOURCE = os.path.join(_CSRC, "encode_verdict.cu")
     LIB_NAME = "libencode_verdict.so"
 
-    FIELD_OPS = {"mul": 0, "sq": 1, "invert": 2, "canonical": 3, "pow22523": 4, "neg": 5}
+    # 0-5: one thread an element (field25519.cuh, K1's and K9's arithmetic);
+    # coop_*: a group of 5 threads an element (field25519_coop.cuh, the
+    # verdict kernel's)
+    FIELD_OPS = {"mul": 0, "sq": 1, "invert": 2, "canonical": 3, "pow22523": 4, "neg": 5,
+                 "coop_mul": 6, "coop_sq": 7, "coop_invert": 8}
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         lib.encode_verdict_launch.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int, _P]
@@ -823,7 +829,8 @@ class EncodeVerdictKernel(_CudaKernel):
     def field_op(self, op: str, a: torch.Tensor, b: Optional[torch.Tensor] = None):
         """Test entry for the field header on the card (not a launch of the
         path, so not counted): a, b (17, n) int32 17×15 limbs -> canonical
-        (17, n) limbs of a·b, a², a⁻¹, a, a^(2^252 − 3) or −a."""
+        (17, n) limbs of a·b, a², a⁻¹, a, a^(2^252 − 3) or −a, or of a·b,
+        a² and a⁻¹ computed by a group of threads (`coop_*`)."""
         b = a if b is None else b
         dev = _check_cuda(a, b)
         _check_dtype(a, torch.int32, "a")

@@ -1,13 +1,17 @@
 """The CUDA kernels' arithmetic, compiled for the host, against the port's
 plain PyTorch versions and Python bigints.
 
-Everything in ``csrc/field25519.cuh`` and ``csrc/edwards25519.cuh`` and the
-per-lane functions of ``csrc/fused_accumulate.cu``, ``csrc/encode_verdict.cu``
-and ``csrc/ladder_verify.cu`` are ``__host__ __device__``: without nvcc the kernels and launchers drop out
-and a host C++ compiler builds the rest. A small harness below drives
-those functions the way the kernels do (a lane's positions split over P
-parts, the pairwise combine tree, the per-lane verdict) and the results
-are held against:
+Everything in ``csrc/field25519.cuh``, ``csrc/field25519_coop.cuh`` and
+``csrc/edwards25519.cuh`` and the per-lane functions of
+``csrc/fused_accumulate.cu``, ``csrc/encode_verdict.cu`` and
+``csrc/ladder_verify.cu`` are ``__host__ __device__``: without nvcc the
+kernels and launchers drop out and a host C++ compiler builds the rest. A
+small harness below drives those functions the way the kernels do (a
+lane's positions split over P parts, the pairwise combine tree, the
+verdict lane of a group of 5 threads, whose exchanges
+``coop::host_group`` emulates in lockstep over arrays with the same phase
+functions the card runs between its shuffles) and the results are held
+against:
 
 - Python bigints, for the field operations, on edge values (0, 1, p-1,
   p, 2^255-1, limbs at their weak-form maxima) and random ones;
@@ -17,8 +21,14 @@ are held against:
   do not divide), in dense and packed rows, and `comb_accumulate_plain`
   in comb mode;
 - `wire_index_plain`, on edge bytes, at every window width;
+- Python bigints, for the group's multiply, square and inversion, and
+  the bounds the header argues for (column sums, round-2 carries, the
+  result's limbs) on limbs at fe_mul's input bounds, for one multiply and
+  for a chain of 254 squarings;
 - `encode_and_compare_plain`, verdicts and canonical affine (x, y), with R
-  as wire bytes and as the comb path's staged limbs and sign;
+  as wire bytes and as the comb path's staged limbs and sign, through the
+  group's verdict lane, also on Z = 0, 1, p - 1, p and the weak form's
+  maxima;
 - `verify_kernel_plain`, for the ladder kernel's lane (decompression,
   256-step ladder, projective comparison): verdicts and canonical affine
   (x, y) of the accumulator, on the smoke's adversarial rows and on
@@ -58,14 +68,43 @@ extern "C" void h_field_op(int op, const int32_t* a, const int32_t* b, int32_t* 
     for (int i = 0; i < 17; ++i) { la[i] = a[i * n + lane]; lb[i] = b[i * n + lane]; }
     const fe x = from15(la);
     fe r = x;
+    coop::host_group grp;
     if (op == 0) r = fe_mul(x, from15(lb));
     if (op == 1) r = fe_sq(x);
     if (op == 2) r = fe_invert(x);
     if (op == 4) r = fe_pow22523(x);
     if (op == 5) r = fe_reduce(fe_neg(x));
+    if (op >= 6) r = tail::coop_field_op(grp, op, x, from15(lb));
     to15(fe_canonical(r), lo);
     for (int i = 0; i < 17; ++i) out[i * n + lane] = lo[i];
   }
+}
+
+// The group's multiply (op 6) or `steps` squarings (op 7) on raw
+// radix-2^25.5 limbs, (10, n) limb-major, emulated at G threads. stats
+// gets the largest column sum, round-2 carry and limb excess over
+// 2^(width - 1) seen at any step.
+extern "C" void h_coop_raw(int op, const int32_t* a, const int32_t* b, int steps, int32_t* out,
+                           long long* stats, int n) {
+  using namespace fe25519;
+  coop::host_group grp;
+  long long excess = 0;
+  for (int lane = 0; lane < n; ++lane) {
+    fe x, y;
+    for (int k = 0; k < 10; ++k) { x.v[k] = a[k * n + lane]; y.v[k] = b[k * n + lane]; }
+    coop::host_group::elem r = grp.pick(x);
+    for (int s = 0; s < (op == 6 ? 1 : steps); ++s) {
+      r = op == 6 ? grp.mul(r, grp.pick(y)) : grp.sq(r);
+      const fe w = grp.full(r);
+      for (int k = 0; k < 10; ++k)
+        excess = std::max(excess, (long long)std::abs((int64_t)w.v[k]) - (1LL << (width(k) - 1)));
+    }
+    const fe w = grp.full(r);
+    for (int k = 0; k < 10; ++k) out[k * n + lane] = w.v[k];
+  }
+  stats[0] = grp.max_column;
+  stats[1] = grp.max_carry2;
+  stats[2] = excess;
 }
 
 extern "C" int h_accumulate(int mode, int packed, const int32_t* idx, const uint8_t* wire,
@@ -117,12 +156,10 @@ extern "C" void h_encode_verdict_limbs(const int32_t* acc, const int32_t* r_y,
                                        const int32_t* r_sign, const uint8_t* pre,
                                        uint8_t* verdict, int32_t* affine, int batch) {
   for (int lane = 0; lane < batch; ++lane) {
-    int32_t l[4][17], xo[17], yo[17];
-    for (int q = 0; q < 3; ++q)
-      for (int i = 0; i < 17; ++i) l[q][i] = acc[(q * 17 + i) * batch + lane];
-    for (int i = 0; i < 17; ++i) l[3][i] = r_y[i * batch + lane];
-    verdict[lane] = tail::encode_verdict_limbs_lane(l[0], l[1], l[2], l[3], r_sign[lane],
-                                                    pre[lane] != 0, xo, yo);
+    int32_t xo[17], yo[17];
+    const tail::lane_src src{acc, nullptr, r_y, r_sign, batch, lane, true};
+    coop::host_group grp;
+    verdict[lane] = tail::verdict_lane(grp, src, pre[lane] != 0, xo, yo);
     for (int i = 0; i < 17; ++i) {
       affine[i * batch + lane] = xo[i];
       affine[(17 + i) * batch + lane] = yo[i];
@@ -142,11 +179,10 @@ extern "C" void h_ladder(const int32_t* a_y, const int32_t* a_sign, const int32_
 extern "C" void h_encode_verdict(const int32_t* acc, const uint8_t* wire, const uint8_t* pre,
                                  uint8_t* verdict, int32_t* affine, int batch) {
   for (int lane = 0; lane < batch; ++lane) {
-    int32_t l[3][17], xo[17], yo[17];
-    for (int q = 0; q < 3; ++q)
-      for (int i = 0; i < 17; ++i) l[q][i] = acc[(q * 17 + i) * batch + lane];
-    verdict[lane] = tail::encode_verdict_lane(l[0], l[1], l[2], wire + 96LL * lane + 64,
-                                              pre[lane] != 0, xo, yo);
+    int32_t xo[17], yo[17];
+    const tail::lane_src src{acc, wire, nullptr, nullptr, batch, lane, true};
+    coop::host_group grp;
+    verdict[lane] = tail::verdict_lane(grp, src, pre[lane] != 0, xo, yo);
     for (int i = 0; i < 17; ++i) {
       affine[i * batch + lane] = xo[i];
       affine[(17 + i) * batch + lane] = yo[i];
@@ -178,6 +214,7 @@ def lib(tmp_path_factory):
     h.h_encode_verdict.argtypes = [vp, vp, vp, vp, vp, ci]
     h.h_encode_verdict_limbs.argtypes = [vp, vp, vp, vp, vp, vp, ci]
     h.h_ladder.argtypes = [vp] * 9 + [ci]
+    h.h_coop_raw.argtypes = [ci, vp, vp, ci, vp, vp, ci]
     return h
 
 
@@ -238,6 +275,99 @@ def test_header_mul_matches_plain_field(lib):
     b = np.ascontiguousarray(np.roll(a, 3, axis=1))
     want = fe.to_canonical(fe.mul(torch.from_numpy(a), torch.from_numpy(b))).numpy()
     np.testing.assert_array_equal(_field_op(lib, 0, a, b), want)
+
+
+@pytest.mark.parametrize("op", ["coop_mul", "coop_sq", "coop_invert"])
+def test_coop_field_ops_match_bigints(lib, op):
+    """csrc/field25519_coop.cuh's multiply, square and inversion, emulated
+    at G = 5 threads through the phase functions the card runs, on edge
+    values and weak-form limbs at their maxima."""
+    a = _edge_operands()
+    b = np.ascontiguousarray(a[:, ::-1])
+    out = _field_op(lib, comb.EncodeVerdictKernel.FIELD_OPS[op], a, b)
+    assert out.min() >= 0 and out.max() <= fe.MASK
+    for i in range(a.shape[1]):
+        x, y = _value(a, i), _value(b, i)
+        want = {"coop_mul": x * y, "coop_sq": x * x, "coop_invert": pow(x, P - 2, P)}[op] % P
+        assert _value(out, i) == want, (op, i)
+
+
+# radix 2^25.5: limb k at bit OFF[k]; fe_mul's input bounds 1.65 * 2^26
+# (even k) and 1.65 * 2^25 (odd k)
+OFF = [(51 * k + 1) // 2 for k in range(11)]
+WIDTH = [OFF[k + 1] - OFF[k] for k in range(10)]
+IN_BOUND = [int(1.65 * 2 ** (w)) for w in WIDTH]
+
+
+def _extreme_raw_limbs() -> np.ndarray:
+    """(10, n) signed radix-2^25.5 limbs at the input bounds' extremes:
+    all at +bound, all at -bound, alternating signs both ways, and seeded
+    random signs and values within the bounds."""
+    rng = np.random.default_rng(2552)
+    bound = np.array(IN_BOUND, np.int64)[:, None]
+    signs = [np.ones((10, 1)), -np.ones((10, 1)), np.array([[1, -1] * 5]).T,
+             np.array([[-1, 1] * 5]).T, rng.choice([-1, 1], (10, 4))]
+    cols = [bound * sg for sg in signs]
+    cols.append(rng.integers(-bound, bound + 1, (10, 4)))
+    return np.ascontiguousarray(np.concatenate(cols, axis=1).astype(np.int32))
+
+
+def _bound_argument():
+    """The header's bound argument, computed from IN_BOUND: the largest
+    column sum, round-2 carry (between threads) and result limb excess
+    over 2^(w-1) a multiply of inputs within the bounds can give."""
+    cols = []
+    for c in range(10):
+        s = 0
+        for i in range(10):
+            n = (c - i) % 10
+            s += (2 if i & n & 1 else 1) * (19 if i + n >= 10 else 1) * IN_BOUND[i] * IN_BOUND[n]
+        cols.append(s)
+    c1 = [(cols[k] + 2 ** (WIDTH[k] - 1)) >> WIDTH[k] for k in range(10)]
+    h1 = [2 ** (WIDTH[k] - 1) + (19 * c1[9] if k == 0 else c1[k - 1]) for k in range(10)]
+    c2 = [(h1[k] + 2 ** (WIDTH[k] - 1)) >> WIDTH[k] for k in range(10)]
+    excess = max([19 * c2[9]] + c2[:9])
+    return max(cols), max(c2[1::2]), excess
+
+
+def _raw_value(limbs: np.ndarray, i: int) -> int:
+    return sum(int(limbs[k, i]) << OFF[k] for k in range(10)) % P
+
+
+def _coop_raw(lib, op, a, b, steps=1):
+    out = np.zeros_like(a)
+    stats = np.zeros(3, np.int64)
+    lib.h_coop_raw(op, _ptr(a), _ptr(b), steps, _ptr(out), _ptr(stats), a.shape[1])
+    return out, stats
+
+
+def test_coop_mul_at_input_bounds(lib):
+    """The group's multiply on operands at fe_mul's input bounds: the
+    product mod p, column sums under 2^60.41, round 2's carries within
+    int32 (at most 679) and the result's limbs within 2^(w-1) + 1729, as
+    the header's bound argument says."""
+    a = _extreme_raw_limbs()
+    b = np.ascontiguousarray(np.roll(a, 1, axis=1))
+    out, (max_column, max_carry2, excess) = _coop_raw(lib, 6, a, b)
+    for i in range(a.shape[1]):
+        assert _raw_value(out, i) == _raw_value(a, i) * _raw_value(b, i) % P, i
+    column_bound, carry_bound, excess_bound = _bound_argument()
+    assert max_column <= column_bound < 2 ** 60.41
+    assert max_carry2 <= carry_bound <= 679 and excess <= excess_bound <= 1729
+
+
+def test_coop_square_chain_from_extreme_limbs(lib):
+    """254 squarings in a row, the inversion chain's length, from limbs
+    at the input bounds' extremes: every step's output is a valid input to
+    the next (its limbs and round-2 carries stay inside the bounds) and
+    the end is x^(2^254) mod p."""
+    a = _extreme_raw_limbs()
+    out, (max_column, max_carry2, excess) = _coop_raw(lib, 7, a, a, steps=254)
+    for i in range(a.shape[1]):
+        assert _raw_value(out, i) == pow(_raw_value(a, i), 2 ** 254, P), i
+    column_bound, carry_bound, excess_bound = _bound_argument()
+    assert max_column <= column_bound
+    assert max_carry2 <= carry_bound and excess <= excess_bound
 
 
 @pytest.fixture(scope="module")
@@ -434,6 +564,51 @@ def test_verdict_limbs_lane_equals_plain(lib, tables):
     assert want_ok.tolist() == [True, False, False, False, True, True, False, False]
     np.testing.assert_array_equal(xy, want_xy.numpy())
 
+
+
+@pytest.mark.parametrize("entry", ["wire", "limbs"])
+def test_coop_verdict_lane_edge_accumulators(lib, entry):
+    """The group's verdict lane, both entries, against
+    encode_and_compare_plain on accumulators the main path does not make:
+    Z = 0 (the inversion's 0 -> 0), Z = 1 (the filler of a lane past the
+    batch), Z = p - 1 and p, and X, Y, Z at the weak form's maxima, with
+    every other lane's R its own point's encoding."""
+    batch = 12
+    rng = np.random.default_rng(7 if entry == "wire" else 8)
+    acc = rng.integers(0, (1 << 15) + (1 << 11), (4, fe.NLIMB, batch), dtype=np.int32)
+    acc[:, 0] = rng.integers(0, (1 << 15) + 39, (4, batch), dtype=np.int32)
+    for lane, z in enumerate([0, 1, P - 1, P]):
+        acc[2, :, lane] = fe._int_to_limbs_np(z)
+    acc[:3, :, 4] = (1 << 15) + (1 << 11) - 1
+    acc[:3, 0, 4] = (1 << 15) + 38
+    p = torch.from_numpy(acc)
+    pre = torch.from_numpy(rng.random(batch) < 0.8)
+    pre[0::2] = True
+    r_y = torch.from_numpy(rng.integers(0, 1 << 15, (fe.NLIMB, batch), dtype=np.int32))
+    r_sign = torch.from_numpy(rng.integers(0, 2, batch).astype(np.int32))
+    _, xy = comb.encode_and_compare_plain(p, r_y, r_sign, pre, affine=True)
+    r_y[:, 0::2] = xy[fe.NLIMB:, 0::2]
+    r_sign[0::2] = xy[0, 0::2] & 1
+    want_ok, want_xy = comb.encode_and_compare_plain(p, r_y, r_sign, pre, affine=True)
+    assert want_ok[0::2].all()
+    acc_np = np.ascontiguousarray(acc.reshape(4 * fe.NLIMB, batch))
+    verdict = np.zeros(batch, np.uint8)
+    got_xy = np.zeros((2 * fe.NLIMB, batch), np.int32)
+    pre_u8 = pre.numpy().astype(np.uint8)
+    if entry == "wire":
+        wire = np.zeros((batch, 96), np.uint8)
+        for lane in range(batch):
+            y = fe._limbs_to_int_np(r_y[:, lane:lane + 1].numpy())
+            wire[lane, 64:] = np.frombuffer((y | int(r_sign[lane]) << 255).to_bytes(32, "little"),
+                                            np.uint8)
+        lib.h_encode_verdict(_ptr(acc_np), _ptr(wire), _ptr(pre_u8), _ptr(verdict),
+                             _ptr(got_xy), batch)
+    else:
+        lib.h_encode_verdict_limbs(_ptr(acc_np), _ptr(np.ascontiguousarray(r_y.numpy())),
+                                   _ptr(np.ascontiguousarray(r_sign.numpy())), _ptr(pre_u8),
+                                   _ptr(verdict), _ptr(got_xy), batch)
+    assert verdict.astype(bool).tolist() == want_ok.tolist()
+    np.testing.assert_array_equal(got_xy, want_xy.numpy())
 
 
 def test_ladder_lane_equals_plain(lib):

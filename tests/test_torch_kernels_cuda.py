@@ -15,7 +15,10 @@ a card and no JAX it runs on its own:
   and 6 bits in dense and packed rows, in wire and index mode, and the
   comb mode), the kernel equals its plain version with the same P;
 - the verdict kernel's comb entry (R as staged limbs and sign) equals
-  `encode_and_compare_plain`;
+  `encode_and_compare_plain`, and both entries do at batch sizes that
+  leave a partial group of 5 threads, a partial warp and a partial block;
+- the cooperative field ops (multiply, square, inversion at 5 threads an
+  element) equal `ops/field25519.py` at 1, 7, 8 and 513 elements;
 - the ladder kernel K9 equals `verify_kernel_plain`: the same verdicts and
   the same canonical affine accumulators, on signed items with
   corruptions and the smoke's adversarial rows.
@@ -189,6 +192,63 @@ def test_verdict_kernel_comb_entry_equals_plain(batch):
     assert torch.equal(ok, want_ok)
     assert torch.equal(got_xy, want_xy)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 8, 513])
+@pytest.mark.parametrize("op", ["coop_mul", "coop_sq", "coop_invert"])
+def test_coop_field_ops_equal_plain_field(op, batch):
+    """The group's arithmetic (csrc/field25519_coop.cuh, 5 threads an
+    element, 6 elements a warp, 24 a block) equals ops/field25519.py in
+    canonical limbs, at counts that leave a partial group and a partial
+    block; the first lanes hold edge values."""
+    dev = _need_card()
+    rng = np.random.default_rng(batch)
+    vals = [0, 1, fe.P_INT - 1, fe.P_INT, fe.P_INT + 1, 2**255 - 1, 2**255 - 20][:batch]
+    vals += [int.from_bytes(bytes(r), "little") % 2**255
+             for r in rng.integers(0, 256, (batch - len(vals), 32), dtype=np.uint8)]
+    a = torch.from_numpy(np.stack([fe._int_to_limbs_np(v) for v in vals], axis=1)).to(dev)
+    a = a.contiguous()
+    b = a.flip(1).contiguous()
+    want = fe.to_canonical({"coop_mul": lambda: fe.mul(a, b), "coop_sq": lambda: fe.mul(a, a),
+                            "coop_invert": lambda: fe.invert(a)}[op]())
+    got = comb.encode_kernel.field_op(op, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 25, 8193])
+@pytest.mark.parametrize("entry", ["wire", "limbs"])
+def test_verdict_kernel_partial_groups_equal_plain(entry, batch):
+    """Both entries at batch sizes that leave a partial group, warp and
+    block: the lanes past the batch run the chain on a filler and store
+    nothing; every lane of the batch equals encode_and_compare_plain."""
+    dev = _need_card()
+    rng = np.random.default_rng(batch + 3)
+    acc = rng.integers(0, 1 << 15, (4 * fe.NLIMB, batch), dtype=np.int32)
+    acc = torch.from_numpy(acc).to(dev)
+    p = acc.reshape(4, fe.NLIMB, batch)
+    r_y = torch.from_numpy(rng.integers(0, 1 << 15, (fe.NLIMB, batch), dtype=np.int32)).to(dev)
+    r_sign = torch.from_numpy(rng.integers(0, 2, batch).astype(np.int32)).to(dev)
+    pre = torch.ones(batch, dtype=torch.bool, device=dev)
+    _, xy = comb.encode_and_compare_plain(p, r_y, r_sign, pre, affine=True)
+    r_y[:, 0::2] = xy[fe.NLIMB:, 0::2]
+    r_sign[0::2] = xy[0, 0::2] & 1
+    want_ok, want_xy = comb.encode_and_compare_plain(p, r_y, r_sign, pre, affine=True)
+    if entry == "wire":
+        wire = rng.integers(0, 256, (batch, 96), dtype=np.uint8)
+        r_y_np = r_y.cpu().numpy()
+        for lane in range(batch):
+            enc = fe._limbs_to_int_np(r_y_np[:, lane:lane + 1]) | int(r_sign[lane]) << 255
+            wire[lane, 64:] = np.frombuffer(enc.to_bytes(32, "little"), np.uint8)
+        ok, got_xy = comb.encode_kernel(acc, torch.from_numpy(wire).to(dev), pre, affine=True)
+    else:
+        ok, got_xy = comb.encode_kernel.limbs(acc, r_y, r_sign, pre, affine=True)
+    torch.cuda.synchronize()
+    assert bool(want_ok[0::2].all())
+    assert torch.equal(ok, want_ok)
+    assert torch.equal(got_xy, want_xy)
 
 
 def _ladder_items(batch: int):
