@@ -15,9 +15,12 @@ then, printing one JSON line per phase:
               verdict library's test entry: csrc/field25519.cuh's
               multiply, square, inversion, canonical reduction,
               pow22523 and negation (one thread an element), and
-              csrc/field25519_coop.cuh's multiply, square and inversion
-              (5 threads an element), against ops/field25519.py on edge
-              and random inputs, exactly;
+              csrc/field25519_coop.cuh's multiply, square, inversion and
+              pow22523 (5 threads an element), against ops/field25519.py
+              on edge and random inputs, exactly; then K9's point
+              operations through the ladder library's test entry (the
+              doubling, the cached addition and the decompression, 5
+              threads a point) against ops/edwards.py, exactly;
 4. kernel   — at every batch bucket, the accumulate kernel (index mode on
               random windows, wire mode on random wire bytes, each with
               the P its wrapper picks) and the verdict kernel against
@@ -40,12 +43,14 @@ then, printing one JSON line per phase:
               signers at w = 6), with the launches of that drive counted
               per configuration; times, P and bounds at B = 8192. The
               eighth configuration is the ladder mode (no key bank): the
-              ladder kernel K9 against verify_kernel_plain at B = 8, 512
-              and 8192 on config 3's items with seeded corruptions and on
-              a fixed adversarial batch (verdicts and canonical affine
-              accumulators, exactly), then a GpuVerifier(mode="ladder")
-              on the 8,192 items, one K9 launch a verify and no launch of
-              the other two kernels;
+              ladder kernel K9 against verify_kernel_plain at B = 7, 8,
+              512, 8192 and 8,193 on config 3's items with seeded
+              corruptions and on a fixed adversarial batch (verdicts and
+              canonical affine accumulators, exactly), each batch also
+              timed over 50 back-to-back calls, the profiler's kernel
+              time at 8192, its registers (no spill), then a
+              GpuVerifier(mode="ladder") on the 8,192 items, one K9
+              launch a verify and no launch of the other two kernels;
 6. verifier — a GpuVerifier over an n=64 committee + 64 clients (key
               bank of 256) verifying an 8,192-item batch with seeded
               corruptions; the bitmap must equal the CPU oracle item by
@@ -129,15 +134,20 @@ TAIL_BYTES_PER_LANE = 3 * 17 * 4 + 32 + 1 + 1
 LIMB_TAIL_BYTES_PER_LANE = 3 * 17 * 4 + 17 * 4 + 4 + 1 + 1
 # the ladder (K9) per lane, at the least work a verify needs: 256 steps of
 # a doubling from (X, Y, Z) (4 squares, then 4 multiplies to extended
-# coordinates) and an addition of a cached (Y - X, Y + X, 2Z, 2dT) addend
+# coordinates) and an addition of a cached (Y - X, Y + X, Z, 2dT) addend
 # (4 multiplies, then 3 back to (X, Y, Z)), as K1's madd is counted in its
-# Niels form; the kernel's unified formulas spend 13 multiplies a step.
-# Then B + Q (9); two decompressions (255 squares, 251 of them in
-# pow22523, and 20 multiplies each); the projective comparison (2)
+# Niels form. Then B + Q (9); two decompressions (255 squares, 251 of
+# them in pow22523, and 20 multiplies each); the projective comparison (2)
 LADDER_STEP_PRODUCTS = 4 * SQ_PRODUCTS + 11 * WIDE_PRODUCTS_PER_MUL
 DECOMPRESS_PRODUCTS = 255 * SQ_PRODUCTS + 20 * WIDE_PRODUCTS_PER_MUL
 LADDER_PRODUCTS_PER_LANE = (256 * LADDER_STEP_PRODUCTS + 2 * DECOMPRESS_PRODUCTS
                             + (9 + 2) * WIDE_PRODUCTS_PER_MUL)
+# what the kernel spends a lane: the same 4 squares and 11 multiplies a
+# step, but on the group every square costs a multiply's 100 products
+# (20 a thread); two decompressions of 274 multiplies (262 in pow22523),
+# A's xy, the table (11: 2d T of B and Q, B + Q, 2d T of B + Q) and the
+# comparison (2)
+LADDER_DESIGN_MULS_PER_LANE = 256 * 15 + 2 * 274 + 1 + 11 + 2
 # A.y, R.y (17 limbs), two signs, two (256,) bit columns, precheck, verdict
 LADDER_BYTES_PER_LANE = 2 * 17 * 4 + 2 * 4 + 2 * 256 * 4 + 1 + 1
 
@@ -190,11 +200,18 @@ def phase_device():
 
 def phase_build():
     """nvcc for the three kernels and g++ for the native helpers, all
-    started together; every one must succeed."""
+    started together; every one must succeed. The kernels' libraries of
+    an earlier run are removed first, so every run builds them from the
+    sources and has their ptxas reports."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from simple_pbft_tpu_torch import native
+    from simple_pbft_tpu_torch import build_dir, native
     from simple_pbft_tpu_torch.ops import comb, ladder
+
+    for k in (comb.accumulate_kernel, comb.encode_kernel, ladder.ladder_kernel):
+        so = os.path.join(build_dir(), k.LIB_NAME)
+        if os.path.exists(so):
+            os.remove(so)
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -312,7 +329,7 @@ def phase_field():
              "invert": lambda: fe.invert(a), "canonical": lambda: a,
              "pow22523": lambda: fe.pow22523(a), "neg": lambda: fe.neg(a),
              "coop_mul": lambda: fe.mul(a, b), "coop_sq": lambda: fe.mul(a, a),
-             "coop_invert": lambda: fe.invert(a)}
+             "coop_invert": lambda: fe.invert(a), "coop_pow22523": lambda: fe.pow22523(a)}
     rows = {}
     for op, fn in plain.items():
         got = comb.encode_kernel.field_op(op, a, b)
@@ -320,7 +337,50 @@ def phase_field():
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"field header {op} != ops/field25519.py")
         rows[op] = {"n": a.shape[1], "equal": True}
+    rows.update(_point_ops(limbs, rng))
     emit("field", edge_values=len(edge), **rows)
+
+
+def _point_ops(limbs, rng):
+    """K9's point operations on the card (5 threads a point, its test
+    entry) against ops/edwards.py, exactly in canonical limbs: the
+    doubling and the cached addition on curve points with Z != 1 and on
+    random elements, the decompression (and its ok flags) of the same
+    y values, edge values among them, with random signs."""
+    import numpy as np
+    import torch
+
+    from simple_pbft_tpu_torch.crypto import ed25519_cpu as ref
+    from simple_pbft_tpu_torch.ops import edwards as ed
+    from simple_pbft_tpu_torch.ops import field25519 as fe
+    from simple_pbft_tpu_torch.ops import ladder
+
+    # point b's coordinates are elements 4b .. 4b + 3: the edge values
+    # fall in the first points' coordinates, y among them
+    n = limbs.shape[1] // 4 * 4
+    pts = limbs[:, :n].reshape(17, n // 4, 4).transpose(2, 0, 1).reshape(4 * 17, n // 4)
+    curve = np.stack([np.concatenate([fe._int_to_limbs_np(c * (i + 7) % fe.P_INT)
+                                      for c in ref.point_mul(i + 2, ref.B)])
+                      for i in range(64)], axis=1)
+    p = torch.from_numpy(np.concatenate([curve, pts], axis=1).astype(np.int32)).cuda()
+    p = p.contiguous()
+    q = p.flip(1).contiguous()
+    sign = torch.from_numpy(rng.integers(0, 2, p.shape[1]).astype(np.int32)).cuda()
+    pt, qt = p.reshape(4, 17, -1), q.reshape(4, 17, -1)
+    plain = {"point_double": lambda: (ed.point_double(pt), None),
+             "point_add": lambda: (ed.point_add(pt, qt), None),
+             "point_decompress": lambda: ed.decompress(pt[1], sign)}
+    rows = {}
+    for op, fn in plain.items():
+        got, ok = ladder.ladder_kernel.point_op(op.split("_")[1], p, q, sign)
+        want, want_ok = fn()
+        torch.cuda.synchronize()
+        check(torch.equal(got.reshape(4, 17, -1), canonical_point(want))
+              and (bool(ok.all()) if want_ok is None else torch.equal(ok, want_ok)),
+              f"K9 {op} != ops/edwards.py")
+        rows[op] = {"n": p.shape[1], "equal": True,
+                    **({"ok": int(ok.sum())} if want_ok is not None else {})}
+    return rows
 
 
 def parts_sweep_ms(wire, a_idx, f_flat, wbits=4):
@@ -683,11 +743,31 @@ def _ladder_check(items, what):
     return row, arrays
 
 
+def _kernel_us(fn, name, calls=5):
+    """torch.profiler's device time of the kernel `name` over `calls`
+    calls of fn, median in us."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    check(len(us) == calls, f"profiler saw {len(us)} launches of {name}, not {calls}")
+    return statistics.median(us)
+
+
 def _ladder_kernels(population):
-    """K9 against its plain version at every batch of MODE_BATCHES on the
-    population's items, corrupted ones first, and on the adversarial
-    batch; times, bounds and registers at the largest, and K9's time at
-    every bucket."""
+    """K9 against its plain version at every batch of MODE_BATCHES and of
+    PARTIAL_BATCHES (a partial group, warp and block) on the population's
+    items, corrupted ones first, and on the adversarial batch; at each
+    batch its time over 50 back-to-back calls; times, bounds and
+    registers at the largest, and K9's time at every bucket. -> (rows,
+    the staged arrays at the largest batch)."""
     import torch
 
     from simple_pbft_tpu_torch.crypto import ed25519_cpu as ref
@@ -699,16 +779,24 @@ def _ladder_kernels(population):
     _, items, bad, _, _ = _population(population)
     badset = set(bad)
     rows = {}
-    for batch in MODE_BATCHES:
+    for batch in sorted(MODE_BATCHES + PARTIAL_BATCHES):
         order = bad[: batch // 4] + [i for i in range(len(items)) if i not in badset]
-        row, arrays = _ladder_check([items[i] for i in order[:batch]], f"B={batch}")
+        row, staged = _ladder_check([items[order[i % len(order)]] for i in range(batch)],
+                                    f"B={batch}")
+        row["back_to_back_ms"] = cuda_ms(lambda: ladder.ladder_kernel(*staged), 5, 3,
+                                         BACK_TO_BACK)
         rows[batch] = {"ladder": row}
+        if batch == MODE_BATCHES[-1]:
+            top, arrays = row, staged
+    row = top
     row["kernel_ms"] = cuda_ms(lambda: ladder.ladder_kernel(*arrays), 10, 2)
     # the plain version runs for seconds at B = 8192, and the check above
     # has warmed it: one timed run
     row["plain_ms"] = cuda_ms(lambda: ladder.verify_kernel_plain(*arrays), 1, 0)
     row.update(_bound(MODE_BATCHES[-1] * LADDER_BYTES_PER_LANE,
                       MODE_BATCHES[-1] * LADDER_PRODUCTS_PER_LANE, arrays[0].device))
+    row["design_products"] = (MODE_BATCHES[-1] * LADDER_DESIGN_MULS_PER_LANE
+                              * WIDE_PRODUCTS_PER_MUL)
     named = ladder_adversarial_items()
     adv, _ = _ladder_check([it for _, it in named], "adversarial")
     oracle = [ref.verify(it.pubkey, it.msg, it.sig) for _, it in named]
@@ -716,15 +804,24 @@ def _ladder_kernels(population):
     check(got == oracle, f"ladder: adversarial bitmap {got} != oracle {oracle}")
     adv["rows"] = {name: ok for (name, _), ok in zip(named, got)}
     rows["adversarial"] = {"ladder": adv}
-    row["ptxas"] = [ln.strip() for ln in ladder.ladder_kernel.build_log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+    # ptxas's report for K9's entry: the lines after its "Compiling entry
+    # function" line, up to the next entry's
+    entry, row["ptxas"] = False, []
+    for ln in ladder.ladder_kernel.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = "ladder_verify_kernel" in ln
+        elif entry and ("registers" in ln or "spill" in ln):
+            row["ptxas"].append(ln.strip())
+    spills = [ln for ln in row["ptxas"] if "spill" in ln]
+    check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+          f"K9: no spill report, or spills: {row['ptxas']}")
     # K9's time at every bucket: how far one lane's chain sets it
     row["ms_by_bucket"] = {}
     for batch in BUCKETS:
         staged = [torch.from_numpy(a).to("cuda")
                   for a in gv.prepare_batch(items[:batch]).arrays()]
         row["ms_by_bucket"][str(batch)] = cuda_ms(lambda: ladder.ladder_kernel(*staged), 5, 1)
-    return rows
+    return rows, arrays
 
 
 def _mode_drive(verifier, population):
@@ -785,7 +882,7 @@ def phase_modes():
     import torch
 
     from simple_pbft_tpu_torch.crypto.gpu_verifier import GpuVerifier
-    from simple_pbft_tpu_torch.ops import comb
+    from simple_pbft_tpu_torch.ops import comb, ladder
 
     out = {}
     for n, (mode, wbits, packed) in enumerate(MODE_CONFIGS):
@@ -809,8 +906,13 @@ def phase_modes():
                       f"{len(bank._index)} of {len(pubkeys)} keys")
                 kernels = _mode_kernels(mode, wbits, v, 4000 + n)
             else:
-                kernels = _ladder_kernels(population)
+                kernels, staged = _ladder_kernels(population)
             drive = _mode_drive(v, population)
+            if bank is None:
+                # K9's time by the profiler, after the drive: a profiler
+                # session ahead of it could slow the drive's host path
+                kernels[MODE_BATCHES[-1]]["ladder"]["profiler_us"] = _kernel_us(
+                    lambda: ladder.ladder_kernel(*staged), "ladder_verify_kernel")
             row = {"mode": mode, "window": wbits, "rowpack": packed,
                    "population": population,
                    "bank_keys": len(bank._index) if bank else 0,

@@ -148,12 +148,14 @@ FE_FN bool verdict_lane(Grp& grp, const lane_src& src, bool precheck, int32_t x_
 }
 
 // The test entry's cooperative ops, for either group: op 6 a * b, 7 a^2,
-// 8 a^-1, gathered whole into every thread and carried.
+// 8 a^-1, 9 a^(2^252 - 3), gathered whole into every thread and carried.
 template <class Grp>
 FE_FN fe coop_field_op(Grp& grp, int op, const fe& a, const fe& b) {
   const auto x = grp.pick(a);
-  const auto r = op == 6 ? grp.mul(x, grp.pick(b)) : op == 7 ? grp.sq(x)
-                                                              : coop::coop_invert(grp, x);
+  const auto r = op == 6   ? grp.mul(x, grp.pick(b))
+                 : op == 7 ? grp.sq(x)
+                 : op == 8 ? coop::coop_invert(grp, x)
+                           : coop::coop_pow22523(grp, x);
   return fe25519::fe_reduce(grp.full(r));
 }
 
@@ -251,9 +253,9 @@ __global__ void field_op_kernel(int op, const int32_t* __restrict__ a,
   for (int i = 0; i < NL; ++i) out[(long long)i * n + lane] = lo[i];
 }
 
-// The cooperative ops (field25519_coop.cuh, which the verdict kernel
-// runs), G threads an element as in the verdict kernel:
-//   op 6: a * b   op 7: a^2   op 8: a^-1
+// The cooperative ops (field25519_coop.cuh, which the verdict and ladder
+// kernels run), G threads an element as in the verdict kernel:
+//   op 6: a * b   op 7: a^2   op 8: a^-1   op 9: a^(2^252 - 3)
 __global__ void __launch_bounds__(THREADS)
 field_op_coop_kernel(int op, const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                      int32_t* __restrict__ out, int n) {
@@ -296,10 +298,10 @@ extern "C" int encode_verdict_limbs_launch(const int32_t* acc, const int32_t* r_
   return (int)cudaGetLastError();
 }
 
-// Ops 0-5 one thread an element, 6-8 a group of G threads.
+// Ops 0-5 one thread an element, 6-9 a group of G threads.
 extern "C" int field_op_launch(int op, const int32_t* a, const int32_t* b, int32_t* out,
                                int n, void* stream) {
-  if (n <= 0 || op < 0 || op > 8) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || op < 0 || op > 9) return (int)cudaErrorInvalidValue;
   if (op >= 6)
     field_op_coop_kernel<<<(n + LANES - 1) / LANES, THREADS, 0, (cudaStream_t)stream>>>(
         op, a, b, out, n);

@@ -46,13 +46,28 @@
 // The result is carried, not ref10-carried: fe_reduce once after the
 // final gather brings it to what fe_canonical expects.
 //
+// The point formulas (the ladder kernel's) add and subtract shares
+// between multiplies. Every multiply input there is a sum or difference
+// of at most three terms, each a multiply's output, a `reduce` output or
+// a carried constant or load, so each within 2^(w-1) + 1729: the input
+// is within 1.5 * 2^w + 5187, inside fe_mul's 1.65 * 2^w. A sum of four
+// is not (2^(w+1)), which is why the doubling's 2 Z^2 goes through `reduce`:
+// one carry round on all limbs at once, whose input (2 Z^2, within
+// 2^w + 3458) gives carries of at most 1 (19 into limb 0) and limbs
+// within 2^(w-1) + 19. The host tests run a 256-step ladder from limbs
+// at these extremes and check every multiply's inputs, column sums,
+// round-2 carries and outputs against the bounds above.
+//
 // The arithmetic each thread does between exchanges is in phase functions
-// (`columns`, `carry_out`, `carry_in`, `pick`), __host__ __device__ like
-// field25519.cuh. Two group types move the limbs between them:
-// `warp_group` with warp shuffles on the card, and `host_group`, which
-// runs the same phase functions for j = 0..G-1 in lockstep over arrays
-// (the host tests' emulation). The chain (`coop_invert`) is written once,
-// for either group.
+// (`columns`, `carry_out`, `carry_in`, `pick`, and the share-wise `add`,
+// `sub`, `neg`, `select`), __host__ __device__ like field25519.cuh. Two
+// group types move the limbs between them: `warp_group` with warp
+// shuffles on the card, and `host_group`, which runs the same phase
+// functions for j = 0..G-1 in lockstep over arrays (the host tests'
+// emulation). Both offer the same operations (`mul`, `sq`, `mul_n`,
+// `reduce`, `pick`, `full` and the share-wise ones), so the chains
+// (`coop_invert`, `coop_pow22523`) and the kernels' lanes are written
+// once, for either group.
 
 #pragma once
 
@@ -125,19 +140,66 @@ FE_FN cfe pick(int j, const fe& a) {
   return r;
 }
 
+// Share-wise sums, differences and negation: a thread's pair alone.
+FE_FN cfe add(const cfe& a, const cfe& b) { return {{a.v[0] + b.v[0], a.v[1] + b.v[1]}}; }
+FE_FN cfe sub(const cfe& a, const cfe& b) { return {{a.v[0] - b.v[0], a.v[1] - b.v[1]}}; }
+FE_FN cfe neg(const cfe& a) { return {{-a.v[0], -a.v[1]}}; }
+
+// `c ? a : b` by selects. The group's threads agree on c, the warp's
+// other groups need not: a branch around a shuffle would split the warp.
+FE_FN cfe select(bool c, const cfe& a, const cfe& b) {
+  return {{c ? a.v[0] : b.v[0], c ? a.v[1] : b.v[1]}};
+}
+
+// fe_mul's input bound on limb k (1.65 * 2^width), for the host tests.
+inline int64_t in_bound(int k) { return (int64_t)(1.65 * (double)(1 << fe25519::width(k))); }
+
 // --- the groups: how the limbs move between the phases -----------------
 
 // The host emulation: all G threads' pairs in one value, every phase run
 // for j = 0..G-1 before the next. The exchanges a shuffle makes on the
 // card are array reads here; round 2's carry passes through int32, as its
-// shuffle does. `max_column` and `max_carry2` record the largest column
-// sum and round-2 carry seen, for the tests of the bound argument.
+// shuffle does. For the tests of the bound argument, `max_column` and
+// `max_carry2` record the largest column sum and round-2 carry seen,
+// `in_excess` the largest excess of a multiply input's limb over
+// `in_bound`, `out_excess` of an output's limb over 2^(width - 1).
 struct host_group {
   struct elem {
     cfe t[G];
   };
   int64_t max_column = 0;
   int64_t max_carry2 = 0;
+  int64_t in_excess = INT64_MIN;
+  int64_t out_excess = INT64_MIN;
+
+  template <class Op>
+  static elem each(Op op) {
+    elem r;
+    for (int j = 0; j < G; ++j) r.t[j] = op(j);
+    return r;
+  }
+  elem add(const elem& a, const elem& b) const {
+    return each([&](int j) { return coop::add(a.t[j], b.t[j]); });
+  }
+  elem sub(const elem& a, const elem& b) const {
+    return each([&](int j) { return coop::sub(a.t[j], b.t[j]); });
+  }
+  elem neg(const elem& a) const { return each([&](int j) { return coop::neg(a.t[j]); }); }
+  elem select(bool c, const elem& a, const elem& b) const { return c ? a : b; }
+
+  // One carry round on every limb at once; the carry passes through int32.
+  elem reduce(const elem& a) const {
+    int64_t h[G][2], c[G];
+    for (int j = 0; j < G; ++j) {
+      h[j][0] = a.t[j].v[0];
+      h[j][1] = a.t[j].v[1];
+      c[j] = (int32_t)carry_out(h[j]);
+    }
+    return each([&](int j) {
+      carry_in(j, h[j], c[(j + G - 1) % G]);
+      return cfe{{(int32_t)h[j][0], (int32_t)h[j][1]}};
+    });
+  }
 
   elem pick(const fe& a) const {
     elem r;
@@ -151,7 +213,14 @@ struct host_group {
     return r;
   }
 
+  void track_inputs(const elem& a) {
+    for (int k = 0; k < 10; ++k)
+      in_excess = std::max(in_excess, (int64_t)std::abs(a.t[k / 2].v[k % 2]) - in_bound(k));
+  }
+
   elem mul(const elem& f, const elem& g) {
+    track_inputs(f);
+    track_inputs(g);
     int64_t h[G][2];
     for (int j = 0; j < G; ++j) {
       int32_t fr[10], ga[10];
@@ -177,10 +246,19 @@ struct host_group {
     }
     elem r;
     for (int j = 0; j < G; ++j) r.t[j] = {{(int32_t)h[j][0], (int32_t)h[j][1]}};
+    for (int k = 0; k < 10; ++k)
+      out_excess = std::max(out_excess, (int64_t)std::abs(r.t[k / 2].v[k % 2]) -
+                                            ((int64_t)1 << (fe25519::width(k) - 1)));
     return r;
   }
 
   elem sq(const elem& f) { return mul(f, f); }
+
+  // N independent products (the card issues them together).
+  template <int N>
+  void mul_n(const elem* f, const elem* g, elem* r) {
+    for (int i = 0; i < N; ++i) r[i] = mul(f[i], g[i]);
+  }
 };
 
 #ifdef __CUDACC__
@@ -239,6 +317,61 @@ struct warp_group {
     return r;
   }
 
+  FE_FN elem add(const elem& a, const elem& b) const { return coop::add(a, b); }
+  FE_FN elem sub(const elem& a, const elem& b) const { return coop::sub(a, b); }
+  FE_FN elem neg(const elem& a) const { return coop::neg(a); }
+  FE_FN elem select(bool c, const elem& a, const elem& b) const { return coop::select(c, a, b); }
+
+  // One carry round on every limb at once (one 32-bit shuffle).
+  FE_FN elem reduce(const elem& a) const {
+    int64_t h[2] = {a.v[0], a.v[1]};
+    carry_in(j, h, shfl((int32_t)carry_out(h), rot[G - 2]));
+    return {{(int32_t)h[0], (int32_t)h[1]}};
+  }
+
+  // N independent products r[i] = f[i] * g[i], issued together: every
+  // gather, then every product's columns, then each carry round for all
+  // N, so that a multiply's three shuffle latencies in series are paid
+  // once for the N (on an H100 the ladder runs 1-6% faster so than with
+  // one product after the other).
+  template <int N>
+  FE_FN void mul_n(const elem* f, const elem* g, elem* r) const {
+    int32_t fr[N][10], ga[N][10];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      fr[i][0] = f[i].v[0];
+      fr[i][1] = f[i].v[1];
+#pragma unroll
+      for (int t = 1; t < G; ++t) {
+        fr[i][2 * t] = shfl(f[i].v[0], rot[t - 1]);
+        fr[i][2 * t + 1] = shfl(f[i].v[1], rot[t - 1]);
+      }
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        ga[i][2 * t] = shfl(g[i].v[0], base + t);
+        ga[i][2 * t + 1] = shfl(g[i].v[1], base + t);
+      }
+    }
+    int64_t h[N][2], c[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) columns(j, fr[i], ga[i], h[i]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) c[i] = shfl64(carry_out(h[i]), rot[G - 2]);  // round 1: up to 2^35.4
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      carry_in(j, h[i], c[i]);
+      c[i] = shfl((int32_t)carry_out(h[i]), rot[G - 2]);  // round 2: within int32
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      carry_in(j, h[i], c[i]);
+      r[i] = {{(int32_t)h[i][0], (int32_t)h[i][1]}};
+    }
+  }
+
+  // One product. `mul_n<1>` computes the same, but the verdict kernel,
+  // which runs single products only, compiles to 2-5% faster code at
+  // small B (an H100) with this body.
   FE_FN elem mul(const elem& f, const elem& g) const {
     int32_t fr[10];
     fr[0] = f.v[0];
@@ -270,14 +403,15 @@ FE_FN typename Grp::elem coop_sqn(Grp& grp, typename Grp::elem x, int n) {
   return x;
 }
 
-// x^(p - 2): field25519.cuh's fe_chain250 / fe_invert chain, 254 squarings
-// and 11 multiplies (0 -> 0), on the group's shares.
+// z^(2^250 - 1), and z^11 in `z11`: field25519.cuh's fe_chain250 on the
+// group's shares.
 template <class Grp>
-FE_FN typename Grp::elem coop_invert(Grp& grp, const typename Grp::elem& z) {
+FE_FN typename Grp::elem coop_chain250(Grp& grp, const typename Grp::elem& z,
+                                       typename Grp::elem& z11) {
   using E = typename Grp::elem;
   const E z2 = grp.sq(z);                                  // 2
   const E z9 = grp.mul(z, coop_sqn(grp, z2, 2));           // 9
-  const E z11 = grp.mul(z2, z9);                           // 11
+  z11 = grp.mul(z2, z9);                                   // 11
   const E z5 = grp.mul(z9, grp.sq(z11));                   // 2^5 - 1
   const E z10 = grp.mul(coop_sqn(grp, z5, 5), z5);         // 2^10 - 1
   const E z20 = grp.mul(coop_sqn(grp, z10, 10), z10);      // 2^20 - 1
@@ -285,8 +419,24 @@ FE_FN typename Grp::elem coop_invert(Grp& grp, const typename Grp::elem& z) {
   const E z50 = grp.mul(coop_sqn(grp, z40, 10), z10);      // 2^50 - 1
   const E z100 = grp.mul(coop_sqn(grp, z50, 50), z50);     // 2^100 - 1
   const E z200 = grp.mul(coop_sqn(grp, z100, 100), z100);  // 2^200 - 1
-  const E z250 = grp.mul(coop_sqn(grp, z200, 50), z50);    // 2^250 - 1
-  return grp.mul(coop_sqn(grp, z250, 5), z11);             // 2^255 - 21
+  return grp.mul(coop_sqn(grp, z200, 50), z50);            // 2^250 - 1
+}
+
+// x^(p - 2): fe_invert's chain, 254 squarings and 11 multiplies (0 -> 0).
+template <class Grp>
+FE_FN typename Grp::elem coop_invert(Grp& grp, const typename Grp::elem& z) {
+  typename Grp::elem z11;
+  const auto z250 = coop_chain250(grp, z, z11);
+  return grp.mul(coop_sqn(grp, z250, 5), z11);  // 2^255 - 21
+}
+
+// x^((p - 5) / 8) = x^(2^252 - 3): fe_pow22523's chain, 251 squarings and
+// 11 multiplies.
+template <class Grp>
+FE_FN typename Grp::elem coop_pow22523(Grp& grp, const typename Grp::elem& z) {
+  typename Grp::elem z11;
+  const auto z250 = coop_chain250(grp, z, z11);
+  return grp.mul(coop_sqn(grp, z250, 2), z);  // 2^252 - 3
 }
 
 }  // namespace coop

@@ -756,7 +756,7 @@ class EncodeVerdictKernel(_CudaKernel):
     # coop_*: a group of 5 threads an element (field25519_coop.cuh, the
     # verdict kernel's)
     FIELD_OPS = {"mul": 0, "sq": 1, "invert": 2, "canonical": 3, "pow22523": 4, "neg": 5,
-                 "coop_mul": 6, "coop_sq": 7, "coop_invert": 8}
+                 "coop_mul": 6, "coop_sq": 7, "coop_invert": 8, "coop_pow22523": 9}
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         lib.encode_verdict_launch.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int, _P]
@@ -830,7 +830,8 @@ class EncodeVerdictKernel(_CudaKernel):
         """Test entry for the field header on the card (not a launch of the
         path, so not counted): a, b (17, n) int32 17×15 limbs -> canonical
         (17, n) limbs of a·b, a², a⁻¹, a, a^(2^252 − 3) or −a, or of a·b,
-        a² and a⁻¹ computed by a group of threads (`coop_*`)."""
+        a², a⁻¹ and a^(2^252 − 3) computed by a group of threads
+        (`coop_*`)."""
         b = a if b is None else b
         dev = _check_cuda(a, b)
         _check_dtype(a, torch.int32, "a")

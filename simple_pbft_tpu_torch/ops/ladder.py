@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import Optional
 
 import torch
 
@@ -33,10 +34,13 @@ class LadderVerifyKernel(_CudaKernel):
 
     SOURCE = os.path.join(_CSRC, "ladder_verify.cu")
     LIB_NAME = "libladder_verify.so"
+    POINT_OPS = {"double": 0, "add": 1, "decompress": 2}
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         lib.ladder_verify_launch.argtypes = [_P] * 9 + [ctypes.c_int, _P]
         lib.ladder_verify_launch.restype = ctypes.c_int
+        lib.ladder_point_op_launch.argtypes = [ctypes.c_int] + [_P] * 5 + [ctypes.c_int, _P]
+        lib.ladder_point_op_launch.restype = ctypes.c_int
 
     def __call__(self, a_y: torch.Tensor, a_sign: torch.Tensor, r_y: torch.Tensor,
                  r_sign: torch.Tensor, s_bits: torch.Tensor, k_bits: torch.Tensor,
@@ -73,6 +77,34 @@ class LadderVerifyKernel(_CudaKernel):
         self._raise_on(rc, "ladder_verify")
         self._count("ladder_verify")
         return (verdict, xy) if affine else verdict
+
+    def point_op(self, op: str, p: torch.Tensor, q: Optional[torch.Tensor] = None,
+                 sign: Optional[torch.Tensor] = None):
+        """Test entry for the kernel's point operations on the card, a group
+        of threads a point as in K9 (not a launch of the path, so not
+        counted): p, q (4·17, n) int32 points in 17×15 limbs, sign (n,)
+        int32 -> ((4·17, n) canonical limbs, (n,) bool) of 2p ("double"),
+        p + q ("add", q taken in the cached form the ladder's table
+        holds) or the decompression of p's Y with `sign` ("decompress",
+        with its ok flags; the other ops give True)."""
+        q = p if q is None else q
+        n = p.shape[-1]
+        sign = torch.zeros(n, dtype=torch.int32, device=p.device) if sign is None else sign
+        dev = _check_cuda(p, q, sign)
+        for t, what in ((p, "p"), (q, "q"), (sign, "sign")):
+            _check_dtype(t, torch.int32, what)
+        if p.shape != (4 * fe.NLIMB, n) or q.shape != p.shape or sign.shape != (n,) or n == 0:
+            raise ValueError(f"(68, n), (68, n), (n,) required, got {tuple(p.shape)}, "
+                             f"{tuple(q.shape)}, {tuple(sign.shape)}")
+        lib = self.library()
+        out = torch.empty_like(p)
+        ok = torch.empty((n,), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.ladder_point_op_launch(self.POINT_OPS[op], p.data_ptr(), q.data_ptr(),
+                                            sign.data_ptr(), out.data_ptr(), ok.data_ptr(), n,
+                                            torch.cuda.current_stream(dev).cuda_stream)
+        self._raise_on(rc, "ladder_point_op")
+        return out, ok.bool()
 
 
 ladder_kernel = LadderVerifyKernel()

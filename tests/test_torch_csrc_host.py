@@ -88,23 +88,18 @@ extern "C" void h_coop_raw(int op, const int32_t* a, const int32_t* b, int steps
                            long long* stats, int n) {
   using namespace fe25519;
   coop::host_group grp;
-  long long excess = 0;
   for (int lane = 0; lane < n; ++lane) {
     fe x, y;
     for (int k = 0; k < 10; ++k) { x.v[k] = a[k * n + lane]; y.v[k] = b[k * n + lane]; }
     coop::host_group::elem r = grp.pick(x);
-    for (int s = 0; s < (op == 6 ? 1 : steps); ++s) {
+    for (int s = 0; s < (op == 6 ? 1 : steps); ++s)
       r = op == 6 ? grp.mul(r, grp.pick(y)) : grp.sq(r);
-      const fe w = grp.full(r);
-      for (int k = 0; k < 10; ++k)
-        excess = std::max(excess, (long long)std::abs((int64_t)w.v[k]) - (1LL << (width(k) - 1)));
-    }
     const fe w = grp.full(r);
     for (int k = 0; k < 10; ++k) out[k * n + lane] = w.v[k];
   }
   stats[0] = grp.max_column;
   stats[1] = grp.max_carry2;
-  stats[2] = excess;
+  stats[2] = grp.out_excess;
 }
 
 extern "C" int h_accumulate(int mode, int packed, const int32_t* idx, const uint8_t* wire,
@@ -170,10 +165,73 @@ extern "C" void h_encode_verdict_limbs(const int32_t* acc, const int32_t* r_y,
 extern "C" void h_ladder(const int32_t* a_y, const int32_t* a_sign, const int32_t* r_y,
                          const int32_t* r_sign, const int32_t* s_bits, const int32_t* k_bits,
                          const uint8_t* pre, uint8_t* verdict, int32_t* affine, int batch) {
-  for (int lane = 0; lane < batch; ++lane)
-    verdict[lane] = ladder::verify_lane(a_y + lane, a_sign[lane], r_y + lane, r_sign[lane],
-                                        s_bits + lane, k_bits + lane, batch, pre[lane] != 0,
-                                        affine + lane);
+  for (int lane = 0; lane < batch; ++lane) {
+    coop::host_group grp;
+    const ladder::lane_src src{a_y + lane,   r_y + lane,   s_bits + lane, k_bits + lane,
+                               a_sign[lane], r_sign[lane], batch,         true};
+    int32_t xo[17], yo[17];
+    verdict[lane] = ladder::verify_lane(grp, src, pre[lane] != 0, true, xo, yo);
+    for (int i = 0; i < 17; ++i) {
+      affine[i * batch + lane] = xo[i];
+      affine[(17 + i) * batch + lane] = yo[i];
+    }
+  }
+}
+
+// ladder::point_op through the group, (4*17, n) points in 17 x 15 limbs.
+extern "C" void h_point_op(int op, const int32_t* p, const int32_t* q, const int32_t* sign,
+                           int32_t* out, int32_t* ok, int n) {
+  using namespace fe25519;
+  for (int lane = 0; lane < n; ++lane) {
+    coop::host_group grp;
+    fe a[4], b[4], r[4];
+    for (int c = 0; c < 4; ++c) {
+      int32_t la[17], lb[17];
+      for (int i = 0; i < 17; ++i) {
+        la[i] = p[(c * 17 + i) * n + lane];
+        lb[i] = q[(c * 17 + i) * n + lane];
+      }
+      a[c] = from15(la);
+      b[c] = from15(lb);
+    }
+    ok[lane] = ladder::point_op(grp, op, a, b, sign[lane], r);
+    for (int c = 0; c < 4; ++c) {
+      int32_t lo[17];
+      to15(fe_canonical(r[c]), lo);
+      for (int i = 0; i < 17; ++i) out[(c * 17 + i) * n + lane] = lo[i];
+    }
+  }
+}
+
+// The ladder's table and 256 steps on raw radix-2^25.5 limbs: Q (4*10, n)
+// and the starting accumulator (3*10, n), the bits (256, n); out gets the
+// accumulator's raw limbs (3*10, n), stats the group's largest column
+// sum, round-2 carry, input excess and output excess over all lanes.
+extern "C" void h_ladder_raw(const int32_t* q, const int32_t* acc, const int32_t* s_bits,
+                             const int32_t* k_bits, int32_t* out, long long* stats, int n) {
+  using E = coop::host_group::elem;
+  using fe25519::fe;
+  coop::host_group grp;
+  for (int lane = 0; lane < n; ++lane) {
+    fe f[7];
+    for (int c = 0; c < 7; ++c)
+      for (int k = 0; k < 10; ++k)
+        f[c].v[k] = c < 4 ? q[(c * 10 + k) * n + lane] : acc[((c - 4) * 10 + k) * n + lane];
+    const ladder::xyzt<E> qp = {grp.pick(f[0]), grp.pick(f[1]), grp.pick(f[2]), grp.pick(f[3])};
+    ladder::cached<E> t[3];
+    ladder::table(grp, qp, t);
+    E a[3] = {grp.pick(f[4]), grp.pick(f[5]), grp.pick(f[6])};
+    const ladder::lane_src src{nullptr, nullptr, s_bits + lane, k_bits + lane, 0, 0, n, true};
+    ladder::steps(grp, a, t, src);
+    for (int c = 0; c < 3; ++c) {
+      const fe w = grp.full(a[c]);
+      for (int k = 0; k < 10; ++k) out[(c * 10 + k) * n + lane] = w.v[k];
+    }
+  }
+  stats[0] = grp.max_column;
+  stats[1] = grp.max_carry2;
+  stats[2] = grp.in_excess;
+  stats[3] = grp.out_excess;
 }
 
 extern "C" void h_encode_verdict(const int32_t* acc, const uint8_t* wire, const uint8_t* pre,
@@ -214,6 +272,8 @@ def lib(tmp_path_factory):
     h.h_encode_verdict.argtypes = [vp, vp, vp, vp, vp, ci]
     h.h_encode_verdict_limbs.argtypes = [vp, vp, vp, vp, vp, vp, ci]
     h.h_ladder.argtypes = [vp] * 9 + [ci]
+    h.h_point_op.argtypes = [ci] + [vp] * 5 + [ci]
+    h.h_ladder_raw.argtypes = [vp] * 6 + [ci]
     h.h_coop_raw.argtypes = [ci, vp, vp, ci, vp, vp, ci]
     return h
 
@@ -277,18 +337,19 @@ def test_header_mul_matches_plain_field(lib):
     np.testing.assert_array_equal(_field_op(lib, 0, a, b), want)
 
 
-@pytest.mark.parametrize("op", ["coop_mul", "coop_sq", "coop_invert"])
+@pytest.mark.parametrize("op", ["coop_mul", "coop_sq", "coop_invert", "coop_pow22523"])
 def test_coop_field_ops_match_bigints(lib, op):
-    """csrc/field25519_coop.cuh's multiply, square and inversion, emulated
-    at G = 5 threads through the phase functions the card runs, on edge
-    values and weak-form limbs at their maxima."""
+    """csrc/field25519_coop.cuh's multiply, square, inversion and
+    pow22523, emulated at G = 5 threads through the phase functions the
+    card runs, on edge values and weak-form limbs at their maxima."""
     a = _edge_operands()
     b = np.ascontiguousarray(a[:, ::-1])
     out = _field_op(lib, comb.EncodeVerdictKernel.FIELD_OPS[op], a, b)
     assert out.min() >= 0 and out.max() <= fe.MASK
     for i in range(a.shape[1]):
         x, y = _value(a, i), _value(b, i)
-        want = {"coop_mul": x * y, "coop_sq": x * x, "coop_invert": pow(x, P - 2, P)}[op] % P
+        want = {"coop_mul": x * y, "coop_sq": x * x, "coop_invert": pow(x, P - 2, P),
+                "coop_pow22523": pow(x, 2**252 - 3, P)}[op] % P
         assert _value(out, i) == want, (op, i)
 
 
@@ -639,3 +700,134 @@ def test_ladder_lane_equals_plain(lib):
     assert want_ok.tolist() == [ref.verify(i.pubkey, i.msg, i.sig) for i in items]
     assert sum(want_ok.tolist()) == 8  # two adversarial rows and six signed
     np.testing.assert_array_equal(xy, want_xy.numpy())
+
+
+def _point_op(lib, op, p, q=None, sign=None):
+    n = p.shape[1]
+    q = p if q is None else q
+    sign = np.zeros(n, np.int32) if sign is None else sign
+    out = np.zeros_like(p)
+    ok = np.zeros(n, np.int32)
+    lib.h_point_op({"double": 0, "add": 1, "decompress": 2}[op], _ptr(p), _ptr(q), _ptr(sign),
+                   _ptr(out), _ptr(ok), n)
+    return out.reshape(4, fe.NLIMB, n), ok.astype(bool)
+
+
+def _points(seed: int, n: int) -> np.ndarray:
+    """(4·17, n) limbs: curve points (multiples of B in extended form, Z
+    not 1) first, then random field elements in every coordinate, as the
+    ladder meets on lanes whose A is no point; the last column at the
+    weak form's maxima."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for i in range(n):
+        if i < n // 2:
+            x, y, z, t = ref.point_mul(i + 2, ref.B)
+            z2 = int(rng.integers(2, 1 << 62))
+            pt = [c * z2 % P for c in (x, y, z, t)]
+        else:
+            pt = [int.from_bytes(bytes(r), "little") % 2**255
+                  for r in rng.integers(0, 256, (4, 32), dtype=np.uint8)]
+        cols.append(np.concatenate([fe._int_to_limbs_np(c) for c in pt]))
+    out = np.stack(cols, axis=1).astype(np.int32)
+    top = np.full((4, fe.NLIMB), (1 << 15) + (1 << 11) - 1, np.int32)
+    top[:, 0] = (1 << 15) + 38
+    out[:, -1] = top.reshape(-1)
+    return np.ascontiguousarray(out)
+
+
+@pytest.mark.parametrize("op", ["double", "add"])
+def test_coop_point_ops_equal_plain(lib, op):
+    """The ladder kernel's doubling and its addition of a cached addend
+    ((Y - X, Y + X, Z, 2d T), C = T1 (2d T2)), through the group's shares,
+    against ops/edwards.py point_double / point_add after canonical
+    reduction: X, Y, Z and T, on curve points and on random elements."""
+    from simple_pbft_tpu_torch.ops import edwards as ed
+
+    n = 12
+    p = _points(31, n)
+    q = np.ascontiguousarray(np.roll(_points(32, n), 3, axis=1))
+    got, _ = _point_op(lib, op, p, q)
+    pt, qt = torch.from_numpy(p.reshape(4, fe.NLIMB, n)), torch.from_numpy(q.reshape(4, fe.NLIMB, n))
+    want = ed.point_double(pt) if op == "double" else ed.point_add(pt, qt)
+    np.testing.assert_array_equal(got, _canonical_point(want).numpy())
+
+
+def test_coop_decompress_edge_values_equal_plain(lib):
+    """The group's decompression (coop_pow22523, the ok flags decided on
+    gathered values, sqrt(-1) and the sign by selects) against
+    ops/edwards.py decompress: y = 0, 1, p - 1, a non-residue, x = 0 with
+    sign 1, keys' y with both signs and random y; the point (x, y, 1, xy)
+    and ok."""
+    from simple_pbft_tpu_torch.ops import edwards as ed
+
+    non_residue = next(y for y in range(2, 64) if ref._recover_x(y, 0) is None)
+    keys = [ref.point_to_affine(ref.point_mul(i + 3, ref.B))[1] for i in range(3)]
+    rng = np.random.default_rng(5)
+    rand = [int.from_bytes(bytes(r), "little") % P for r in rng.integers(0, 256, (4, 32),
+                                                                           dtype=np.uint8)]
+    rows = [(0, 0), (0, 1), (1, 0), (1, 1), (P - 1, 0), (P - 1, 1), (non_residue, 0),
+            (non_residue, 1)] + [(y, s) for y in keys for s in (0, 1)] + [(y, 0) for y in rand]
+    n = len(rows)
+    p = np.zeros((4, fe.NLIMB, n), np.int32)
+    p[1] = _limbs([y for y, _ in rows])
+    p = np.ascontiguousarray(p.reshape(4 * fe.NLIMB, n))
+    sign = np.array([s for _, s in rows], np.int32)
+    got, ok = _point_op(lib, "decompress", p, sign=sign)
+    want, want_ok = ed.decompress(torch.from_numpy(p[fe.NLIMB:2 * fe.NLIMB]),
+                                  torch.from_numpy(sign))
+    assert ok.tolist() == want_ok.tolist()
+    assert want_ok.tolist()[:8] == [True, True, True, False, True, False, False, False]
+    assert all(want_ok.tolist()[8:14])
+    np.testing.assert_array_equal(got, _canonical_point(want).numpy())
+
+
+# a coop multiply's output limbs: within 2^(w - 1) + 1729 (the header's bound)
+OUT_BOUND = [2 ** (w - 1) + 1729 for w in WIDTH]
+
+
+def _ladder_bigint(q, acc, s_bits, k_bits):
+    """The plain ladder's formulas on integers mod p from any (X, Y, Z, T)
+    Q and starting (X, Y, Z): the table {identity, B, Q, B + Q}, 256
+    doublings and additions."""
+    table = [ref.IDENTITY, ref.B, q, ref.point_add(ref.B, q)]
+    acc = tuple(acc) + (0,)
+    for i in range(256):
+        acc = ref.point_add(ref.point_double(acc), table[s_bits[i] + 2 * k_bits[i]])
+    return acc[:3]
+
+
+def test_coop_ladder_from_extreme_limbs_within_bounds(lib):
+    """The ladder kernel's table and all 256 steps through the group, with
+    Q and the starting accumulator at the extremes of a multiply's output
+    (every limb at +-(2^(w-1) + 1729) in several sign patterns, and random
+    limbs within it): every multiply's inputs stay within fe_mul's input
+    bounds, its column sums and round-2 carries within the header's
+    bounds, its outputs within 2^(w-1) + 1729, and the result equals the
+    plain formulas mod p."""
+    rng = np.random.default_rng(9)
+    bound = np.array(OUT_BOUND, np.int64)[:, None]
+    signs = [np.ones((10, 1)), -np.ones((10, 1)), np.array([[1, -1] * 5]).T,
+             np.array([[-1, 1] * 5]).T]
+    cols = [bound * sg for sg in signs] + [bound * rng.choice([-1, 1], (10, 3)),
+                                           rng.integers(-bound, bound + 1, (10, 3))]
+    ext = np.concatenate(cols, axis=1).astype(np.int32)
+    n = ext.shape[1]
+    q = np.ascontiguousarray(np.concatenate([np.roll(ext, c, axis=1) for c in range(4)]))
+    acc = np.ascontiguousarray(np.concatenate([np.roll(ext, -c - 1, axis=1) for c in range(3)]))
+    s_bits = rng.integers(0, 2, (256, n), dtype=np.int32)
+    k_bits = rng.integers(0, 2, (256, n), dtype=np.int32)
+    s_bits[:4, 0], k_bits[:4, 0] = [0, 1, 0, 1], [0, 0, 1, 1]
+    out = np.zeros((30, n), np.int32)
+    stats = np.zeros(4, np.int64)
+    lib.h_ladder_raw(_ptr(q), _ptr(acc), _ptr(s_bits), _ptr(k_bits), _ptr(out), _ptr(stats), n)
+    max_column, max_carry2, in_excess, out_excess = stats.tolist()
+    column_bound, carry_bound, excess_bound = _bound_argument()
+    assert in_excess <= 0, "a multiply input exceeds fe_mul's bounds"
+    assert max_column <= column_bound and max_carry2 <= carry_bound
+    assert out_excess <= excess_bound <= 1729
+    for i in range(n):
+        qv = [_raw_value(q[10 * c:10 * c + 10], i) for c in range(4)]
+        av = [_raw_value(acc[10 * c:10 * c + 10], i) for c in range(3)]
+        want = _ladder_bigint(qv, av, s_bits[:, i].tolist(), k_bits[:, i].tolist())
+        assert [_raw_value(out[10 * c:10 * c + 10], i) for c in range(3)] == list(want), i

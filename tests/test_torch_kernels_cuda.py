@@ -21,7 +21,10 @@ a card and no JAX it runs on its own:
   element) equal `ops/field25519.py` at 1, 7, 8 and 513 elements;
 - the ladder kernel K9 equals `verify_kernel_plain`: the same verdicts and
   the same canonical affine accumulators, on signed items with
-  corruptions and the smoke's adversarial rows.
+  corruptions and the smoke's adversarial rows, at batch sizes on both
+  sides of its group, warp and block edges; its point operations (the
+  doubling, the cached addition and the decompression, 5 threads a
+  point) equal ops/edwards.py.
 """
 
 import numpy as np
@@ -196,7 +199,7 @@ def test_verdict_kernel_comb_entry_equals_plain(batch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 7, 8, 513])
-@pytest.mark.parametrize("op", ["coop_mul", "coop_sq", "coop_invert"])
+@pytest.mark.parametrize("op", ["coop_mul", "coop_sq", "coop_invert", "coop_pow22523"])
 def test_coop_field_ops_equal_plain_field(op, batch):
     """The group's arithmetic (csrc/field25519_coop.cuh, 5 threads an
     element, 6 elements a warp, 24 a block) equals ops/field25519.py in
@@ -211,7 +214,8 @@ def test_coop_field_ops_equal_plain_field(op, batch):
     a = a.contiguous()
     b = a.flip(1).contiguous()
     want = fe.to_canonical({"coop_mul": lambda: fe.mul(a, b), "coop_sq": lambda: fe.mul(a, a),
-                            "coop_invert": lambda: fe.invert(a)}[op]())
+                            "coop_invert": lambda: fe.invert(a),
+                            "coop_pow22523": lambda: fe.pow22523(a)}[op]())
     got = comb.encode_kernel.field_op(op, a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -253,14 +257,16 @@ def test_verdict_kernel_partial_groups_equal_plain(entry, batch):
 
 def _ladder_items(batch: int):
     """The adversarial rows of crypto/adversarial.py, then items of 8 signers with
-    every third one corrupted (a flipped S or R byte, another message)."""
+    every third one corrupted (a flipped S or R byte, another message);
+    past 512 signed items they repeat."""
     from simple_pbft_tpu_torch.crypto.adversarial import ladder_adversarial_items
     from simple_pbft_tpu_torch.crypto.verifier import BatchItem
 
     items = [it for _, it in ladder_adversarial_items()][:batch]
+    adversarial = len(items)
     seeds = [bytes([i + 1]) * 32 for i in range(8)]
     j = 0
-    while len(items) < batch:
+    while len(items) < batch and j < 512:
         seed, msg = seeds[j % 8], b"ladder %d" % j
         sig = bytearray(ref.sign(seed, msg))
         if j % 3 == 1:
@@ -269,14 +275,23 @@ def _ladder_items(batch: int):
             msg += b"!"
         items.append(BatchItem(ref.public_key(seed), msg, bytes(sig)))
         j += 1
+    signed = items[adversarial:]
+    while len(items) < batch:
+        items.append(signed[(len(items) - adversarial) % len(signed)])
     return items
 
 
+# the group, warp and block edges of K9 (5 threads a lane, 6 lanes a warp,
+# 24 a block), the adversarial batch (8) and a larger one
+LADDER_BATCHES = [1, 5, 6, 7, 8, 24, 25, 512, 8193]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [8, 512])
+@pytest.mark.parametrize("batch", LADDER_BATCHES)
 def test_ladder_kernel_equals_plain(batch):
     """K9 against verify_kernel_plain, exactly: verdicts and canonical
-    affine (x, y) of [S]B + [k](-A); one counted launch."""
+    affine (x, y) of [S]B + [k](-A); one counted launch. Lanes past the
+    batch run the chain and store nothing."""
     from simple_pbft_tpu_torch.crypto import gpu_verifier as gv
 
     dev = _need_card()
@@ -289,4 +304,50 @@ def test_ladder_kernel_equals_plain(batch):
     want_ok, want_xy = gv.verify_kernel_plain(*arrays, affine=True)
     assert torch.equal(ok, want_ok)
     assert torch.equal(xy, want_xy)
-    assert ok.cpu().tolist() == [ref.verify(i.pubkey, i.msg, i.sig) for i in items]
+    oracle = {}  # items repeat past 520: verify each distinct one once
+    for i in items:
+        if id(i) not in oracle:
+            oracle[id(i)] = ref.verify(i.pubkey, i.msg, i.sig)
+    assert ok.cpu().tolist() == [oracle[id(i)] for i in items]
+
+
+def _point_rows(dev, n: int, seed: int):
+    """(4·17, n) points: multiples of B with Z != 1, then random elements
+    in every coordinate; and (n,) signs."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for i in range(n):
+        if i % 2 == 0:
+            z = int(rng.integers(2, 1 << 62))
+            pt = [c * z % fe.P_INT for c in ref.point_mul(i + 2, ref.B)]
+        else:
+            pt = [int.from_bytes(bytes(r), "little") % 2**255
+                  for r in rng.integers(0, 256, (4, 32), dtype=np.uint8)]
+        cols.append(np.concatenate([fe._int_to_limbs_np(c) for c in pt]))
+    p = torch.from_numpy(np.stack(cols, axis=1).astype(np.int32)).to(dev).contiguous()
+    sign = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
+    return p, sign
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 25, 513])
+@pytest.mark.parametrize("op", ["double", "add", "decompress"])
+def test_coop_point_ops_equal_plain(op, batch):
+    """K9's point operations on the card (a group of 5 threads a point)
+    against ops/edwards.py in canonical limbs: the doubling, the addition
+    of a cached addend and the decompression with its ok flags."""
+    from simple_pbft_tpu_torch.ops import edwards as ed
+
+    dev = _need_card()
+    p, sign = _point_rows(dev, batch, batch)
+    q, _ = _point_rows(dev, batch, batch + 1)
+    got, ok = ladder.ladder_kernel.point_op(op, p, q, sign)
+    torch.cuda.synchronize()
+    pt, qt = p.reshape(4, fe.NLIMB, batch), q.reshape(4, fe.NLIMB, batch)
+    if op == "decompress":
+        want, want_ok = ed.decompress(pt[1], sign)
+        assert torch.equal(ok, want_ok)
+    else:
+        want = ed.point_double(pt) if op == "double" else ed.point_add(pt, qt)
+        assert bool(ok.all())
+    assert torch.equal(got.reshape(4, fe.NLIMB, batch), _canonical(want))
