@@ -5,9 +5,9 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels (the device pass's two, and the ladder
-mode's) and the native host helpers from the sources in the repository,
-then, printing one JSON line per phase:
+It builds the four CUDA kernels (the device pass's two, the ladder
+mode's, and the quorum tally) and the native host helpers from the
+sources in the repository, then, printing one JSON line per phase:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc / g++ build seconds and the kernels' register reports;
@@ -51,14 +51,29 @@ then, printing one JSON line per phase:
               time at 8192, its registers (no spill), then a
               GpuVerifier(mode="ladder") on the 8,192 items, one K9
               launch a verify and no launch of the other two kernels;
-6. verifier — a GpuVerifier over an n=64 committee + 64 clients (key
+6. mesh     — the multi-device path on Mesh(["cuda:0"] * 4), one card
+              holding four positions, at BASELINE config 3's sizes (its
+              8,192-item batch as 128 instances of 64 votes): the tally
+              kernel against quorum_tally_plain at B = 1, 7, 8, 512, 8192
+              and 8,193 by n_inst = 1, 2, 128 and 1,000, exactly, its
+              times and bound at 8192 x 128; both quorum steps
+              (parallel/sharded_verify.py) on the mesh of 4 and a mesh of
+              1, verdicts equal to the oracle and counts equal to its
+              tally on every position, k launches of each kernel on a
+              mesh of k, and a profiler trace of one comb step; meshed
+              GpuVerifiers in fused w=4 dense, comb and ladder on the
+              8,192 items, bitmaps equal to the oracle, k launches a pass;
+              the port's dryrun_multichip(4); an n=4 committee sharing one
+              meshed fused verifier (tests/test_committee.py's); the
+              steps' and passes' times at mesh 1 and 4;
+7. verifier — a GpuVerifier over an n=64 committee + 64 clients (key
               bank of 256) verifying an 8,192-item batch with seeded
               corruptions; the bitmap must equal the CPU oracle item by
               item; e2e verifies/s; the device pass's time with its split
               between the two kernels, taken by CUDA events in the same
               passes; a torch.profiler trace of one pass, which must hold
               exactly the two kernels besides copies;
-7. committee (the main path) — an n=16 (f=5) LocalCommittee whose
+8. committee (the main path) — an n=16 (f=5) LocalCommittee whose
               replicas share one VerifyService over one GpuVerifier, with
               the CPU routes turned off; 16 clients x 25 puts; every reply
               "ok", one state digest equal to a plain KVStore's, every
@@ -66,7 +81,7 @@ then, printing one JSON line per phase:
               latencies from a drive without the profiler, the device's
               idle share from a second drive on a fresh committee, traced
               over its middle half;
-8. deployment (a main path) — the port's launcher as a
+9. deployment (a main path) — the port's launcher as a
               subprocess: 16 replica processes (n=16, f=5) with
               --verifier gpu over TCP, each verifying through its own
               VerifyService(GpuVerifier) on the card, and one client
@@ -78,14 +93,14 @@ then, printing one JSON line per phase:
               line, boot seconds, the card's memory per process, each
               node's passes, and node r0's device profile (armed with
               --device-profile) are printed;
-9. bench      — python -m simple_pbft_tpu_torch.bench at its defaults
+10. bench     — python -m simple_pbft_tpu_torch.bench at its defaults
               (fused, w = 5, dense rows), at BENCH_WINDOW=4 and at
               BENCH_MODE=comb (no error, on the card, each line carrying
               its mode, window and rowpack) and python -m
               simple_pbft_tpu_torch.bench_consensus --configs 2 --verifier
               gpu --seconds 10 (commits, device passes);
-10. the kernels line (launches of the committee, the deployment and the
-   modes phase's verifier drives; each kernel's `configs` map; K9's
+11. the kernels line (launches of the committee, the deployment, the
+   modes phase's verifier drives and the mesh phase's drives; each kernel's `configs` map; K9's
    launches are the ladder drive's), and last the device line.
 
 Every phase prints its seconds (`phase_seconds` of the `done` line).
@@ -199,16 +214,17 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc for the three kernels and g++ for the native helpers, all
+    """nvcc for the four kernels and g++ for the native helpers, all
     started together; every one must succeed. The kernels' libraries of
     an earlier run are removed first, so every run builds them from the
     sources and has their ptxas reports."""
     from concurrent.futures import ThreadPoolExecutor
 
     from simple_pbft_tpu_torch import build_dir, native
-    from simple_pbft_tpu_torch.ops import comb, ladder
+    from simple_pbft_tpu_torch.ops import comb, ladder, quorum
 
-    for k in (comb.accumulate_kernel, comb.encode_kernel, ladder.ladder_kernel):
+    for k in (comb.accumulate_kernel, comb.encode_kernel, ladder.ladder_kernel,
+              quorum.tally_kernel):
         so = os.path.join(build_dir(), k.LIB_NAME)
         if os.path.exists(so):
             os.remove(so)
@@ -219,11 +235,12 @@ def phase_build():
         return out, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         jobs = {
             "fused_accumulate.cu": pool.submit(timed, comb.accumulate_kernel.library),
             "encode_verdict.cu": pool.submit(timed, comb.encode_kernel.library),
             "ladder_verify.cu": pool.submit(timed, ladder.ladder_kernel.library),
+            "quorum_tally.cu": pool.submit(timed, quorum.tally_kernel.library),
             "pbft_native.cpp": pool.submit(timed, native.available),
             "ed25519.cpp": pool.submit(timed, native.ed25519_available),
             "canonjson.cpp": pool.submit(timed, native.canonjson_available),
@@ -236,7 +253,8 @@ def phase_build():
                if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         for name, k in (("fused_accumulate", comb.accumulate_kernel),
                         ("encode_verdict", comb.encode_kernel),
-                        ("ladder_verify", ladder.ladder_kernel))
+                        ("ladder_verify", ladder.ladder_kernel),
+                        ("quorum_tally", quorum.tally_kernel))
     }
     emit("build", seconds={k: round(v[1], 3) for k, v in results.items()},
          wall_seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
@@ -931,6 +949,260 @@ def phase_modes():
     return out
 
 
+# the mesh phase's sizes: BASELINE config 3 (a committee of 64 with prepare
+# and commit quorum batching), its 8,192-item batch as 128 instances of 64
+# votes, on a mesh of 4 positions of the one card
+MESH_INST, MESH_VOTES, MESH_K = 128, 64, 4
+# 2048 and 2 are the shard shapes the mesh of 4 gives the kernel: B / MESH_K,
+# and the dry run's 2 votes a position
+TALLY_BATCHES = (1, 2, 7, 8, 512, MESH_INST * MESH_VOTES // MESH_K, 8192, 8193)
+TALLY_INSTANCES = (1, 2, 128, 1000)
+TALLY_TOP = (8192, 128)
+
+
+def tally_bound(onehot, verdict):
+    """Least time for the tally on this input: the verdicts read once, the
+    one-hot rows of the votes whose verdict is set read once (no other row
+    adds to a count), the counts written once; one add an element read."""
+    batch, n_inst = onehot.shape
+    n_valid = int(verdict.sum())
+    return {"n_valid": n_valid,
+            **_bound(n_valid * n_inst * 4 + batch + n_inst * 4, n_valid * n_inst,
+                     onehot.device)}
+
+
+def _path_kernels():
+    from simple_pbft_tpu_torch.ops import comb, ladder, quorum
+
+    return {"fused_accumulate": comb.accumulate_kernel, "encode_verdict": comb.encode_kernel,
+            "ladder_verify": ladder.ladder_kernel, "quorum_tally": quorum.tally_kernel}
+
+
+class _Counted:
+    """Launches of the mesh path's drives: each drive runs with every
+    kernel's count set to 0 just before it and is read just after; the
+    totals sum the drives'."""
+
+    def __init__(self):
+        self.total = {k: 0 for k in _path_kernels()}
+        self.entries = {"wire": 0, "limbs": 0}
+
+    def __call__(self, fn):
+        import torch
+
+        kernels = _path_kernels()
+        for k in kernels.values():
+            k.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: k.launches for name, k in kernels.items()}
+        for name, n in got.items():
+            self.total[name] += n
+        for entry in self.entries:
+            self.entries[entry] += kernels["encode_verdict"].launches_by.get(entry, 0)
+        return out, got
+
+
+def _mesh_tally():
+    """(a) The tally kernel against quorum_tally_plain, exactly, at every B
+    and n_inst of the grid, with all-zero padding rows; its one-call and
+    back-to-back times, the plain version's and the bound at B = 8192,
+    n_inst = 128."""
+    import numpy as np
+    import torch
+
+    from simple_pbft_tpu_torch.ops import quorum
+
+    rng = np.random.default_rng(11)
+    errs = {}
+    for batch in TALLY_BATCHES:
+        for n_inst in TALLY_INSTANCES:
+            rows = np.eye(n_inst, dtype=np.int32)[rng.integers(0, n_inst, batch)]
+            rows[::7] = 0  # padding rows
+            onehot = torch.from_numpy(rows).to("cuda")
+            verdict = torch.from_numpy(rng.random(batch) < 0.9).to("cuda")
+            got = quorum.tally_kernel(onehot, verdict)
+            want = quorum.quorum_tally_plain(onehot, verdict)
+            torch.cuda.synchronize()
+            errs[f"{batch}x{n_inst}"] = _max_err(got, want)
+            check(torch.equal(got, want), f"quorum_tally != plain at B={batch}, n_inst={n_inst}")
+            if (batch, n_inst) == TALLY_TOP:
+                top = onehot, verdict
+    onehot, verdict = top
+    return {
+        "max_abs_err": max(errs.values()), "max_abs_err_by_shape": errs,
+        "batch": TALLY_TOP[0], "n_inst": TALLY_TOP[1],
+        "kernel_ms": cuda_ms(lambda: quorum.tally_kernel(onehot, verdict), 20, 3),
+        "back_to_back_ms": cuda_ms(lambda: quorum.tally_kernel(onehot, verdict), 5, 3,
+                                   BACK_TO_BACK),
+        "plain_ms": cuda_ms(lambda: quorum.quorum_tally_plain(onehot, verdict), 20, 3),
+        # the kernel alone: back to back, the wrapper's host time (about
+        # 0.03 ms) still exceeds the kernel's, so neither timing hides it
+        "profiler_us": _kernel_us(lambda: quorum.tally_kernel(onehot, verdict),
+                                  "quorum_tally_kernel"),
+        **tally_bound(onehot, verdict),
+    }
+
+
+def _profile_step(step, args, k):
+    """torch.profiler over one comb quorum step on the mesh: exactly k
+    launches each of K1, the verdict kernel's limb entry and the tally,
+    besides copies, memsets, comb_verify_kernel's row-base multiply (k)
+    and the psum's adds (k - 1)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith(("Memcpy", "Memset"))]
+    names = ("fused_accumulate_kernel", "encode_verdict_limbs_kernel", "quorum_tally_kernel")
+    count = {n: sum(1 for e in events if n in e.name) for n in names}
+    others = [e.name for e in events if not any(n in e.name for n in names)]
+    adds = [n for n in others if "add" in n.lower()]
+    muls = [n for n in others if "mul" in n.lower()]
+    check(all(c == k for c in count.values()) and len(adds) == k - 1 and len(muls) == k
+          and len(others) == len(adds) + len(muls),
+          f"profiled comb step on {k}: {count}, others {others}")
+    return {"kernels": count, "psum_adds": len(adds), "row_base_muls": len(muls),
+            "kernel_us": {n: sum(e.time_range.elapsed_us() for e in events if n in e.name)
+                          for n in names}}
+
+
+def phase_mesh():
+    """The multi-device path on one card: (a) the tally kernel; (b) both
+    quorum steps on Mesh(["cuda:0"] * 4) and on a mesh of 1; (c) meshed
+    GpuVerifiers in fused w=4 dense, comb and ladder; (d) the port's
+    dryrun_multichip(4); (e) an n = 4 committee sharing one meshed fused
+    verifier. -> the path's launches, by kernel and by verdict entry, and
+    the tally's row."""
+    import numpy as np
+
+    from simple_pbft_tpu_torch.crypto.gpu_verifier import GpuVerifier, prepare_batch
+    from simple_pbft_tpu_torch.ops import comb
+    from simple_pbft_tpu_torch.parallel import Mesh, make_comb_quorum_step, make_quorum_step
+    from simple_pbft_tpu_torch.parallel.dryrun import dryrun_multichip
+    from simple_pbft_tpu_torch.parallel.mesh import gather
+
+    counted = _Counted()
+    tally = _mesh_tally()
+    pubkeys, items, bad, oracle, _ = _population("config3")
+    inst = np.arange(len(items)) // MESH_VOTES
+    onehot = np.eye(MESH_INST, dtype=np.int32)[inst]
+    want_counts = np.bincount(inst, weights=np.asarray(oracle, dtype=np.int64),
+                              minlength=MESH_INST).astype(np.int64).tolist()
+    meshes = {k: Mesh(["cuda:0"] * k) for k in (1, MESH_K)}
+    verifiers = {}
+    for k, mesh in meshes.items():
+        for mode in ("fused", "comb", "ladder"):
+            v = GpuVerifier(mode=mode, initial_keys=len(pubkeys) + 32, mesh=mesh)
+            if v._bank is not None:
+                _register(v, pubkeys)
+            v.warm_for_population(pubkeys, max_sweep=8192)
+            verifiers[k, mode] = v
+
+    # (b) the quorum steps, staged by the meshed verifiers' own staging
+    comb_v = verifiers[MESH_K, "comb"]
+    s_nib, k_nib, a_idx, r_y, r_sign, pre = comb_v.prepare(items)[0].arrays()
+    dev = meshes[MESH_K].devices[0]
+    comb_args = (s_nib, k_nib, a_idx, comb_v._bank.device_tables(),
+                 comb.base_table_device(dev), r_y, r_sign, pre, onehot)
+    ladder_args = (*prepare_batch(items).arrays(), onehot)
+    steps = {}
+    for k, mesh in meshes.items():
+        for kind, make, args in (("comb", make_comb_quorum_step, comb_args),
+                                 ("ladder", make_quorum_step, ladder_args)):
+            step = make(mesh)
+            (verdict, counts), launches = counted(lambda: step(*args))
+            got = gather(verdict).tolist()
+            mismatch = [i for i, (a, b) in enumerate(zip(got, oracle)) if a != b]
+            check(not mismatch, f"{kind} step on {k}: verdicts != oracle at {mismatch[:10]}")
+            check(len(counts) == k and all(c.cpu().tolist() == want_counts for c in counts),
+                  f"{kind} step on {k}: counts != the oracle's tally")
+            want = ({"fused_accumulate": k, "encode_verdict": k, "ladder_verify": 0}
+                    if kind == "comb" else
+                    {"fused_accumulate": 0, "encode_verdict": 0, "ladder_verify": k})
+            check(launches == {**want, "quorum_tally": k},
+                  f"{kind} step on {k}: launches {launches}")
+            row = {"launches": launches, "matches_oracle": True,
+                   "step_ms": cuda_ms(lambda: step(*args), 5, 1)}
+            if kind == "comb":
+                row["profile"] = _profile_step(step, args, k)
+            steps[f"{kind}_mesh{k}"] = row
+
+    # (c) the meshed verifiers' passes
+    passes = {}
+    for (k, mode), v in verifiers.items():
+        got, launches = counted(lambda: v.verify_batch(items))
+        mismatch = [i for i, (a, b) in enumerate(zip(got, oracle)) if a != b]
+        check(not mismatch, f"{mode} verifier on {k}: bitmap != oracle at {mismatch[:10]}")
+        want = ({"fused_accumulate": 0, "encode_verdict": 0, "ladder_verify": k}
+                if mode == "ladder" else
+                {"fused_accumulate": k, "encode_verdict": k, "ladder_verify": 0})
+        check(launches == {**want, "quorum_tally": 0},
+              f"{mode} verifier on {k}: launches {launches} a pass")
+        e2e = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            v.verify_batch(items)
+            e2e.append(time.perf_counter() - t0)
+        arrays = v.prepare(items)[0].padded(8192).arrays()
+        passes[f"{mode}_mesh{k}"] = {
+            "launches": launches, "matches_oracle": True,
+            "verifies_per_s_e2e": len(items) / statistics.median(e2e),
+            "mesh_pass_ms": cuda_ms(lambda: v.mesh_pass(arrays), 5, 1)}
+
+    # (d) the dry run, (e) a committee over one meshed fused verifier
+    t0 = time.perf_counter()
+    _, dry = counted(lambda: dryrun_multichip(MESH_K))
+    dry_s = time.perf_counter() - t0
+    check(dry["fused_accumulate"] > 0 and dry["quorum_tally"] == MESH_K,
+          f"dry run launches {dry}")
+    committee = _mesh_committee(counted)
+    emit("mesh", mesh=MESH_K, batch=len(items), n_inst=MESH_INST, votes=MESH_VOTES,
+         corrupted=len(bad), tally=tally, steps=steps, verifiers=passes,
+         dryrun={"launches": dry, "seconds": dry_s}, committee=committee,
+         launches=counted.total, verdict_entries=counted.entries)
+    return {"launches": counted.total, "verdict_entries": counted.entries, "tally": tally}
+
+
+def _mesh_committee(counted):
+    """tests/test_committee.py's meshed committee on the card: n = 4, one
+    client, `put m1 1` then `get m1`, every replica sharing one fused
+    GpuVerifier over Mesh(["cuda:0"] * 4); the consensus traffic must reach
+    the mesh beyond the warm, each pass launching both kernels 4 times."""
+    import asyncio
+
+    from simple_pbft_tpu_torch.committee import LocalCommittee
+    from simple_pbft_tpu_torch.crypto.gpu_verifier import GpuVerifier
+    from simple_pbft_tpu_torch.parallel import Mesh
+
+    shared = GpuVerifier(mode="fused", initial_keys=16, mesh=Mesh(["cuda:0"] * MESH_K))
+    com = LocalCommittee.build(n=4, clients=1, verifier_factory=lambda: shared,
+                               view_timeout=30.0)
+    shared.warm(pubkeys=[kp.pub for kp in com.keys.values()], buckets=[8, 32])
+    baseline = shared.device_calls
+
+    async def scenario():
+        com.start()
+        try:
+            return [await com.clients[0].submit("put m1 1"),
+                    await com.clients[0].submit("get m1")]
+        finally:
+            await com.stop()
+
+    replies, launches = counted(lambda: asyncio.run(asyncio.wait_for(scenario(), 120)))
+    check(replies == ["ok", "1"], f"committee replies {replies}")
+    calls = shared.device_calls - baseline
+    check(calls > 0, "the committee's traffic never reached the mesh")
+    check(launches["fused_accumulate"] == launches["encode_verdict"] == calls * MESH_K,
+          f"committee launches {launches} for {calls} passes on {MESH_K}")
+    return {"replies": replies, "device_calls": calls, "launches": launches}
+
+
 def phase_verifier():
     import torch
 
@@ -1442,12 +1714,12 @@ def _accumulate_configs(modes):
     return out
 
 
-def kernel_rows(rows, by_path, modes):
+def kernel_rows(rows, by_path, modes, mesh):
     """The kernels line: each kernel at the largest bucket, in the mode
     the main path runs it; `launches` sums the paths' counts; `configs`
     holds every configuration (K1) or entry (the verdict kernel)."""
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
-                for k in ("fused_accumulate", "encode_verdict", "ladder_verify")}
+                for k in ("fused_accumulate", "encode_verdict", "ladder_verify", "quorum_tally")}
     top = max(rows)
     k1 = rows[top]["wire"]
     tail = rows[top]["verdict"]
@@ -1459,9 +1731,14 @@ def kernel_rows(rows, by_path, modes):
     limbs = comb_row["by_batch"][str(MODE_BATCHES[-1])]["verdict_limbs"]
     err_tail = max([err_tail] + [b["verdict_limbs"]["max_abs_err"]
                                  for b in comb_row["by_batch"].values()])
-    entry_launches = {e: sum(r["drive"]["launches"]["encode_verdict"].get(e, 0)
-                             for r in modes.values()) for e in ("wire", "limbs")}
-    main_paths = sum(v["encode_verdict"] for p, v in by_path.items() if p != "modes")
+    # the verdict kernel's launches by entry: the modes' and the mesh's
+    # drives count them by entry, the other paths run the wire entry only
+    entry_launches = {e: mesh["verdict_entries"][e]
+                      + sum(r["drive"]["launches"]["encode_verdict"].get(e, 0)
+                            for r in modes.values()) for e in ("wire", "limbs")}
+    main_paths = sum(v["encode_verdict"] for p, v in by_path.items()
+                     if p not in ("modes", "mesh"))
+    tally = mesh["tally"]
     lad = modes["ladder"]
     k9 = lad["by_batch"][str(MODE_BATCHES[-1])]["ladder"]
     return [{
@@ -1527,6 +1804,25 @@ def kernel_rows(rows, by_path, modes):
                                "launches": lad["drive"]["launches"]["ladder_verify"]["ladder_verify"],
                                "device_pass_ms": lad["drive"]["device_pass_ms"],
                                "verifies_per_s_e2e": lad["drive"]["verifies_per_s_e2e"]}},
+    }, {
+        "name": "quorum_tally",
+        "route": "cuda",
+        "source": "simple_pbft_tpu_torch/csrc/quorum_tally.cu",
+        "replaces": "simple_pbft_tpu/parallel/sharded_verify.py:133 and :163 (the tally of "
+                    "make_comb_quorum_step :105 and make_quorum_step :140), XLA",
+        "launches": launches["quorum_tally"],
+        "launches_by_path": {p: v.get("quorum_tally", 0) for p, v in by_path.items()},
+        "max_abs_err": tally["max_abs_err"],
+        "batch": tally["batch"],
+        "n_inst": tally["n_inst"],
+        "ms": tally["kernel_ms"],
+        "back_to_back_ms": tally["back_to_back_ms"],
+        "profiler_us": tally["profiler_us"],
+        "plain_ms": tally["plain_ms"],
+        "bound_ms": tally["bound_ms"],
+        "bound_by": tally["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes an int32 one-hot tally on CUDA",
     }]
 
 
@@ -1560,15 +1856,19 @@ def main(argv=None):
     timed("field", phase_field)
     rows = timed("kernel", phase_kernel)
     modes = timed("modes", phase_modes)
+    mesh = timed("mesh", phase_mesh)
     timed("verifier", phase_verifier)
     by_path = {"committee": timed("committee", phase_committee, args.view_timeout)}
     by_path["deployment"] = timed("deployment", phase_deployment)
     by_path["modes"] = _modes_launches(modes)
     for kernel, count in by_path["modes"].items():
         check(count > 0, f"the modes phase's drives never launched {kernel}")
+    by_path["mesh"] = mesh["launches"]
+    for kernel, count in by_path["mesh"].items():
+        check(count > 0, f"the mesh phase's drives never launched {kernel}")
     timed("bench", phase_bench)
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=seconds)
-    print(json.dumps({"kernels": kernel_rows(rows, by_path, modes)}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(rows, by_path, modes, mesh)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -32,6 +32,10 @@ Straus ladder per item (`verify_kernel`; its plain version is
 `verify_kernel_plain`, both imported here under the JAX package's names).
 It serves key sets of any size.
 
+With ``mesh=`` (parallel/mesh.py, the counterpart of the JAX package's
+``TpuVerifier(mesh=...)``) a pass splits the batch over the mesh's
+devices and runs the mode's kernels on each shard.
+
 The verifier runs on CUDA unless constructed with ``device="cpu"`` (the
 tests do); without a CUDA device it raises instead of falling back.
 """
@@ -52,6 +56,7 @@ from ..ops import comb
 from ..ops import field25519 as fe
 from ..ops import ladder
 from ..ops.ladder import verify_kernel, verify_kernel_plain  # noqa: F401 (the JAX names)
+from ..parallel.mesh import Mesh, P, gather, shard_map
 from . import ed25519_cpu as ref
 from .verifier import BatchItem
 
@@ -201,6 +206,7 @@ class KeyBank:
         self._cap = max(1, min(initial_capacity, self._max_keys))
         self._np = np.zeros((self._cap, self._rows_per_key, self.row), np.int32)
         self._dev: Optional[torch.Tensor] = None
+        self._replicas: Dict[torch.device, torch.Tensor] = {}
         self._dirty = True
         # the replica pipeline verifies sweep k+1 in a second worker thread
         # while sweep k is in flight — bank mutation must be atomic or two
@@ -303,16 +309,24 @@ class KeyBank:
                     fallback.append(i)
         return a_idx, hit, fallback
 
-    def device_tables(self) -> torch.Tensor:
+    def device_tables(self, device=None) -> torch.Tensor:
         """Flat (cap * rows_per_key, ROW) int32 table on the bank's device,
-        uploaded again only after the bank changed."""
+        or on `device` (a mesh's other device: a copy of it), uploaded again
+        only after the bank changed. An upload drops every copy, so no
+        device keeps a table older than the bank."""
         with self._lock:
             if self._dirty or self._dev is None:
                 self._dev = torch.from_numpy(
                     self._np.reshape(self._cap * self._rows_per_key, self.row)
                 ).to(self.device)
+                self._replicas = {}
                 self._dirty = False
-            return self._dev
+            if device is None or torch.device(device) == self.device:
+                return self._dev
+            device = torch.device(device)
+            if device not in self._replicas:
+                self._replicas[device] = self._dev.to(device, copy=True)
+            return self._replicas[device]
 
 
 def _pad_batch_arrays(arrays, n: int, size: int):
@@ -491,6 +505,18 @@ def prepare_wire_batch(
     return WireBatch(n, wire, a_idx.astype(np.int32), ok), fallback
 
 
+def _mesh_specs(mode: str, axis: str):
+    """The JAX TpuVerifier's mesh splits of the staged arrays, in their
+    order, then the bank's tables: the fused path's wire rows lead with the
+    batch, the comb's and the ladder's limb-, position- and bit-major
+    arrays trail with it; tables replicate."""
+    vec, mat = P(axis), P(None, axis)
+    staged = {"fused": (P(axis, None), vec, vec),
+              "comb": (mat, mat, vec, mat, vec, vec),
+              "ladder": (mat, vec, mat, vec, mat, mat, vec)}[mode]
+    return staged + (P(),)
+
+
 # One device pass at a time, process-wide. The replica runtime calls
 # verify_batch from worker threads; the lock serializes the enqueue of a
 # pass's kernels (a single device executes them in order anyway).
@@ -511,6 +537,15 @@ class GpuVerifier:
 
     Pads drained batches to bucketed sizes, runs one device pass per
     chunk, and returns the per-item bitmap.
+
+    With a `mesh` (parallel/mesh.py) a pass splits the batch over the
+    mesh's devices and runs the mode's kernels on each shard, on its
+    device, as the JAX TpuVerifier(mesh=...) does: the staged per-item
+    arrays are split along the batch, the bank's tables (and comb's base
+    table) replicated, one copy a distinct device. The bank lives on the
+    mesh's first device, whose type `device` must name; batches pad to at
+    least the mesh size, which must be a power of two. Without a mesh the
+    verifier runs on a mesh of its one device.
     """
 
     name = "gpu"
@@ -521,6 +556,7 @@ class GpuVerifier:
         mode: str = "fused",
         window: int = WINDOW_BITS,
         initial_keys: Optional[int] = None,
+        mesh: Optional[Mesh] = None,
     ):
         if mode not in ("comb", "fused", "ladder"):
             raise ValueError(f"mode must be comb|fused|ladder, got {mode!r}")
@@ -530,6 +566,22 @@ class GpuVerifier:
             raise RuntimeError("the comb mode reads dense rows; packed rows "
                                "(use_row_packing) only feed the fused path")
         self.device = resolve_device(device)
+        if mesh is None:
+            mesh = Mesh([self.device])  # one device: a mesh of one
+        if mesh.size & (mesh.size - 1):
+            # batches pad to power-of-two buckets, which a mesh of another
+            # size cannot divide evenly
+            raise ValueError(
+                f"GpuVerifier needs a power-of-two mesh size, got "
+                f"{mesh.size} devices"
+            )
+        if mesh.devices[0].type != self.device.type:
+            raise ValueError(f"device {self.device} and the mesh's "
+                             f"{mesh.devices[0]} differ in type")
+        self._mesh = mesh
+        self.device = mesh.devices[0]
+        self._mesh_fn = shard_map(self._shard_pass, mesh,
+                                  _mesh_specs(mode, mesh.axis_names[0]))
         self._mode = mode
         self._window = window
         # initial_keys sizes the bank for the EXPECTED key population
@@ -688,12 +740,24 @@ class GpuVerifier:
         prepare = prepare_wire_batch if self._mode == "fused" else prepare_comb_batch
         return prepare(items, self._bank)
 
+    def _shard_pass(self, *args) -> torch.Tensor:
+        """One shard's device pass: its staged arrays, then its tables."""
+        return self.device_pass(list(args[:-1]), args[-1])
+
+    def mesh_pass(self, arrays) -> List[torch.Tensor]:
+        """The mode's pass over the mesh on a staged batch's host arrays
+        (the batch a multiple of the mesh size) -> one (B/k,) bool verdict
+        tensor a shard, on its device, in mesh order."""
+        tables = [None if self._bank is None else self._bank.device_tables(d)
+                  for d in self._mesh.devices]
+        return self._mesh_fn(*arrays, tables)
+
     def device_pass(self, arrays: List[torch.Tensor],
                     tables: Optional[torch.Tensor]) -> torch.Tensor:
         """The mode's device pass on the staged batch's tensors (a
         WireBatch's in fused mode, a CombBatch's in comb mode, a
-        PreparedBatch's in ladder mode, on this verifier's device) and the
-        bank's tables (None in ladder mode) -> (B,) bool."""
+        PreparedBatch's in ladder mode) and the bank's tables (None in
+        ladder mode), all on one device -> (B,) bool."""
         if self._mode == "ladder":
             return verify_kernel(*arrays)
         if self._mode == "fused":
@@ -702,7 +766,7 @@ class GpuVerifier:
                                                  window=1 << self._window)
         s_nib, k_nib, a_idx, r_y, r_sign, precheck = arrays
         return comb.comb_verify_kernel(s_nib, k_nib, a_idx, tables,
-                                       comb.base_table_device(self.device), r_y, r_sign,
+                                       comb.base_table_device(tables.device), r_y, r_sign,
                                        precheck)
 
     def _dispatch_chunk(
@@ -713,29 +777,26 @@ class GpuVerifier:
         from .. import devledger, spans
 
         t_prep = time.perf_counter()
-        size = _bucket_size(len(items))
+        size = _bucket_size(max(len(items), self._mesh.size))
         prep, fallback = self.prepare(items)
         prep = prep.padded(size)
         arrays = prep.arrays()
-        tables = self._bank.device_tables() if self._bank is not None else None
         compile_fresh = self._record_shape(size)
         prep_s = time.perf_counter() - t_prep
         spans.record(spans.VERIFY_HOST_PREP, prep_s, n=len(items))
         bytes_up = sum(a.nbytes for a in arrays)
         queue_wait_s, submissions = annotation
-        dev = self.device
         with _DEVICE_LOCK:
             t0 = time.perf_counter()
-            dev_out = self.device_pass(
-                [torch.from_numpy(a).to(dev) for a in arrays], tables
-            )  # CUDA: enqueue only
+            dev_out = self.mesh_pass(arrays)  # CUDA: enqueue only
             self.device_calls += 1
             self.device_items += len(items)
 
         def finish() -> List[bool]:
-            # copy to the host blocks until the device answers; the copy
-            # is writable, fallback rows below are set in place
-            verdict = dev_out.cpu().numpy().copy()
+            # copy to the host blocks until the device answers; the shards'
+            # verdicts join in mesh order into a writable array, whose
+            # fallback rows below are set in place
+            verdict = gather(dev_out)
             rtt = time.perf_counter() - t0
             with _DEVICE_LOCK:
                 self.device_seconds += rtt

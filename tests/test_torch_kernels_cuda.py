@@ -1,5 +1,5 @@
-"""The two CUDA kernels of the device pass against their plain versions, on
-a card. Without one every test here skips.
+"""The CUDA kernels against their plain versions, on a card. Without one
+every test here skips.
 
 This file imports neither `jax` nor the JAX package, so on a machine with
 a card and no JAX it runs on its own:
@@ -24,7 +24,11 @@ a card and no JAX it runs on its own:
   corruptions and the smoke's adversarial rows, at batch sizes on both
   sides of its group, warp and block edges; its point operations (the
   doubling, the cached addition and the decompression, 5 threads a
-  point) equal ops/edwards.py.
+  point) equal ops/edwards.py;
+- the quorum tally kernel equals `quorum_tally_plain` on one-hot rows
+  with padding and on random int32 weights, at B = 1 to 8,193 and up to
+  1,000 instances; both quorum steps on Mesh(["cuda:0"] * 4) equal the
+  same steps on Mesh(["cpu"] * 4), with four launches of each kernel.
 """
 
 import numpy as np
@@ -351,3 +355,138 @@ def test_coop_point_ops_equal_plain(op, batch):
         want = ed.point_double(pt) if op == "double" else ed.point_add(pt, qt)
         assert bool(ok.all())
     assert torch.equal(got.reshape(4, fe.NLIMB, batch), _canonical(want))
+
+
+# the tally's shapes: a partial warp of rows and columns, one column block,
+# the mesh shards' and the whole batch's, a partial row block, and 1,000
+# instances (32 column blocks, the last partial)
+TALLY_SHAPES = [(1, 1), (7, 2), (8, 128), (512, 128), (8192, 128), (8193, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n_inst", TALLY_SHAPES)
+def test_quorum_tally_kernel_equals_plain(batch, n_inst):
+    """The tally kernel against quorum_tally_plain, exactly: one-hot rows
+    with all-zero padding rows; then random int32 weights, whose sums wrap
+    modulo 2^32 as JAX's int32 sum does. One counted launch a call."""
+    from simple_pbft_tpu_torch.ops import quorum
+
+    dev = _need_card()
+    rng = np.random.default_rng(batch + n_inst)
+    onehot = np.eye(n_inst, dtype=np.int32)[rng.integers(0, n_inst, batch)]
+    onehot[::5] = 0
+    weights = rng.integers(-2**31, 2**31, (batch, n_inst), dtype=np.int64).astype(np.int32)
+    verdict = torch.from_numpy(rng.random(batch) < 0.8).to(dev)
+    for rows in (onehot, weights):
+        t = torch.from_numpy(rows).to(dev)
+        before = quorum.tally_kernel.launches_by.get("quorum_tally", 0)
+        got = quorum.tally_kernel(t, verdict)
+        torch.cuda.synchronize()
+        assert quorum.tally_kernel.launches_by["quorum_tally"] == before + 1
+        assert torch.equal(got, quorum.quorum_tally_plain(t, verdict))
+
+
+def _vote_items(n: int):
+    """n votes of 8 keys over 2 instances, vote 0 corrupted."""
+    items = [_signed(i % 8, b"inst vote %d" % i) for i in range(n)]
+    broken = bytearray(items[0].sig)
+    broken[3] ^= 1
+    items[0] = type(items[0])(items[0].pubkey, items[0].msg, bytes(broken))
+    return items
+
+
+def _signed(i: int, msg: bytes):
+    from simple_pbft_tpu_torch.crypto.verifier import BatchItem
+
+    seed = bytes([i + 1]) * 32
+    return BatchItem(ref.public_key(seed), msg, ref.sign(seed, msg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["comb", "ladder"])
+def test_quorum_steps_on_a_mesh_of_four_on_one_card(kind):
+    """Both quorum steps on Mesh(["cuda:0"] * 4) against the same steps on
+    Mesh(["cpu"] * 4) (the plain versions): the same verdicts and counts;
+    four launches of each of the step's kernels."""
+    from simple_pbft_tpu_torch.crypto import gpu_verifier as gv
+    from simple_pbft_tpu_torch.ops import quorum
+    from simple_pbft_tpu_torch.parallel import Mesh, make_comb_quorum_step, make_quorum_step
+    from simple_pbft_tpu_torch.parallel.mesh import gather
+
+    _need_card()
+    items = _vote_items(64)
+    onehot = np.eye(2, dtype=np.int32)[np.arange(64) % 2]
+    if kind == "comb":
+        bank = gv.KeyBank(device="cpu", mode="comb")
+        prep, _ = gv.prepare_comb_batch(items, bank)
+        s, k, a_idx, r_y, r_sign, pre = prep.arrays()
+        tables = bank.device_tables()
+
+        def run(mesh):
+            return make_comb_quorum_step(mesh)(s, k, a_idx, tables.to(mesh.devices[0]),
+                                               comb.base_table_device(mesh.devices[0]),
+                                               r_y, r_sign, pre, onehot)
+    else:
+        arrays = gv.prepare_batch(items).arrays()
+
+        def run(mesh):
+            return make_quorum_step(mesh)(*arrays, onehot)
+
+    kernels = (comb.accumulate_kernel, comb.encode_kernel, ladder.ladder_kernel,
+               quorum.tally_kernel)
+    before = [k.launches for k in kernels]
+    verdict, counts = run(Mesh(["cuda:0"] * 4))
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    assert launched == ([4, 4, 0, 4] if kind == "comb" else [0, 0, 4, 4])
+    want_verdict, want_counts = run(Mesh(["cpu"] * 4))
+    assert np.array_equal(gather(verdict), gather(want_verdict))
+    assert not gather(verdict)[0] and gather(verdict)[1:].all()
+    assert [c.cpu().tolist() for c in counts] == [want_counts[0].tolist()] * 4 == [[31, 32]] * 4
+
+
+@pytest.mark.cuda
+def test_mesh_across_cards_equals_the_oracle():
+    """On a host with several cards, a mesh of distinct cards (the largest
+    power of two of them): both quorum steps and the meshed fused and comb
+    verifiers equal the oracle, each shard's verdicts stay on its card,
+    and the bank's copies on the other cards follow the bank when it
+    grows."""
+    from simple_pbft_tpu_torch.crypto import gpu_verifier as gv
+    from simple_pbft_tpu_torch.parallel import Mesh, make_comb_quorum_step, make_quorum_step
+    from simple_pbft_tpu_torch.parallel.mesh import gather
+
+    _need_card()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = Mesh([f"cuda:{i}" for i in range(1 << (cards.bit_length() - 1))])
+    items = _vote_items(64)
+    oracle = [ref.verify(i.pubkey, i.msg, i.sig) for i in items]
+    onehot = np.eye(2, dtype=np.int32)[np.arange(64) % 2]
+    want_counts = [sum(oracle[0::2]), sum(oracle[1::2])]
+
+    bank = gv.KeyBank(device=mesh.devices[0], mode="comb")
+    s, k, a_idx, r_y, r_sign, pre = gv.prepare_comb_batch(items, bank)[0].arrays()
+    steps = {
+        "comb": make_comb_quorum_step(mesh)(s, k, a_idx, bank.device_tables(),
+                                            comb.base_table_device(mesh.devices[0]),
+                                            r_y, r_sign, pre, onehot),
+        "ladder": make_quorum_step(mesh)(*gv.prepare_batch(items).arrays(), onehot),
+    }
+    for kind, (verdict, counts) in steps.items():
+        assert [v.device for v in verdict] == list(mesh.devices), kind
+        assert gather(verdict).tolist() == oracle, kind
+        assert [c.device for c in counts] == list(mesh.devices), kind
+        assert [c.cpu().tolist() for c in counts] == [want_counts] * mesh.size, kind
+
+    for mode in ("fused", "comb"):
+        v = gv.GpuVerifier(mode=mode, mesh=mesh)
+        assert v.verify_batch(items) == oracle, mode
+        assert set(v._bank._replicas) == set(mesh.devices[1:]), mode
+        # a new key grows the bank past its 8 slots: every card's copy is
+        # dropped with the upload and made again from the grown bank
+        more = [_signed(8 + i, b"late key %d" % i) for i in range(4)] + items[:4]
+        assert v.verify_batch(more) == [True] * 4 + oracle[:4], mode
+        for d in mesh.devices[1:]:
+            assert torch.equal(v._bank.device_tables(d).cpu(), v._bank.device_tables().cpu())

@@ -26,13 +26,24 @@ def _base_port(offset):
     return 25000 + (os.getpid() % 250) * 12 + offset
 
 
+EXPECTED = {f"'put k{i} v{i}'": "'ok'" for i in range(8)}
+
+
 def _launch(package, tmp_path, base_port, *extra):
+    """-> {request: reply} of the client's result lines. The client prints
+    its results in the order they complete, which depends on when the
+    nodes came up (the JAX launcher starts its client after a fixed
+    second, so under load some requests are retried and finish late):
+    each request's reply is what both launchers must agree on."""
     out = _run([f"{package}.launch", "-n", "4", "--load", "8", "--verifier", "cpu",
                 "--base-port", str(base_port), "--deploy-dir", str(tmp_path),
                 "--keep", *extra], timeout=120)
-    assert out.returncode == 0, (out.stdout[-800:], out.stderr[-800:])
-    assert '"ops": 8' in out.stdout, out.stdout[-800:]
-    return [ln for ln in out.stdout.splitlines() if " -> " in ln]
+    assert out.returncode == 0, (package, out.stdout[-800:], out.stderr[-800:])
+    assert '"ops": 8' in out.stdout, (package, out.stdout[-800:])
+    lines = [ln.split(" -> ") for ln in out.stdout.splitlines() if " -> " in ln]
+    replies = dict(lines)
+    assert len(replies) == len(lines), (package, lines)  # each request once
+    return replies
 
 
 def test_port_launch_prints_the_jax_launchers_results(tmp_path):
@@ -41,7 +52,7 @@ def test_port_launch_prints_the_jax_launchers_results(tmp_path):
     got = _launch("simple_pbft_tpu_torch", tmp_path / "port", _base_port(0))
     want = _launch("simple_pbft_tpu", tmp_path / "jax", _base_port(5))
     assert got == want
-    assert got == [f"'put k{i} v{i}' -> 'ok'" for i in range(8)]
+    assert got == EXPECTED
     for i in range(4):  # every node was ready before the client ran
         assert (tmp_path / "port" / "log" / f"r{i}.status.json").exists()
 
@@ -50,7 +61,7 @@ def test_port_launch_over_grpc(tmp_path):
     pytest.importorskip("grpc")
     got = _launch("simple_pbft_tpu_torch", tmp_path, _base_port(0) + 3500,
                   "--transport", "grpc")
-    assert got == [f"'put k{i} v{i}' -> 'ok'" for i in range(8)]
+    assert got == EXPECTED
 
 
 def _json_lines(stdout):
