@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the four CUDA kernels (the device pass's two, the ladder
-mode's, and the quorum tally) and the native host helpers from the
-sources in the repository, then, printing one JSON line per phase:
+mode's, and the quorum tally) and the native host helpers (BLS too) from
+the sources in the repository, then, printing one JSON line per phase:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc / g++ build seconds and the kernels' register reports;
@@ -21,6 +21,10 @@ sources in the repository, then, printing one JSON line per phase:
               operations through the ladder library's test entry (the
               doubling, the cached addition and the decompression, 5
               threads a point) against ops/edwards.py, exactly;
+3b. sim     — the port's deterministic simulator (sim.py, no kernel: its
+              committee verifies on the CPU) on the STORM scenario of
+              tests/test_sim.py, seed 11, twice: both runs pass their
+              oracles with the same trace fingerprint;
 4. kernel   — at every batch bucket, the accumulate kernel (index mode on
               random windows, wire mode on random wire bytes, each with
               the P its wrapper picks) and the verdict kernel against
@@ -73,6 +77,14 @@ sources in the repository, then, printing one JSON line per phase:
               between the two kernels, taken by CUDA events in the same
               passes; a torch.profiler trace of one pass, which must hold
               exactly the two kernels besides copies;
+7b. costmodel — the card's gather rate: torch.index_select of the rows one
+              fused w=4 pass reads at B = 8192 (8192 x 64 random rows)
+              from a 256-slot bank's table, in dense (256 B) and packed
+              (128 B) rows, as 4-, 8- and 16-byte elements, the median
+              of 20 calls by CUDA events; the
+              port's crypto/costmodel.shape_cost("fused", 4, 8192); and
+              the verifier phase's K1 time as an achieved gather rate
+              against the cost model's "h100" ceiling;
 8. committee (the main path) — an n=16 (f=5) LocalCommittee whose
               replicas share one VerifyService over one GpuVerifier, with
               the CPU routes turned off; 16 clients x 25 puts; every reply
@@ -93,6 +105,21 @@ sources in the repository, then, printing one JSON line per phase:
               line, boot seconds, the card's memory per process, each
               node's passes, and node r0's device profile (armed with
               --device-profile) are printed;
+9b. replica_unit (a main path) — python -m
+              simple_pbft_tpu_torch.bench_replica_unit --verifier gpu at
+              the JAX script's defaults: one replica of n = 100 (f = 33)
+              fed 16 pre-signed blocks of 128 requests, verifying through
+              VerifyService(GpuVerifier) on the card, in plain and qc
+              mode. Each mode must commit every block with device passes
+              and launches of both kernels;
+9c. config3 (a main path) — python -m simple_pbft_tpu_torch.bench_consensus
+              --configs 3 --verifier gpu --seconds 10: BASELINE config 3,
+              a committee of 64 (f = 21) in one process with 8 clients x
+              128 requests in flight and every verify pile on the card.
+              It must commit, with device passes only, no watchdog
+              failover, no first-time shape after the warm and launches of
+              both kernels. Both 9b and 9c print the card memory their
+              process used;
 10. bench     — python -m simple_pbft_tpu_torch.bench at its defaults
               (fused, w = 5, dense rows), at BENCH_WINDOW=4 and at
               BENCH_MODE=comb (no error, on the card, each line carrying
@@ -100,8 +127,9 @@ sources in the repository, then, printing one JSON line per phase:
               simple_pbft_tpu_torch.bench_consensus --configs 2 --verifier
               gpu --seconds 10 (commits, device passes);
 11. the kernels line (launches of the committee, the deployment, the
-   modes phase's verifier drives and the mesh phase's drives; each kernel's `configs` map; K9's
-   launches are the ladder drive's), and last the device line.
+   replica unit, config 3, the modes phase's verifier drives and the
+   mesh phase's drives; each kernel's `configs` map; K9's launches are
+   the ladder drive's), and last the device line.
 
 Every phase prints its seconds (`phase_seconds` of the `done` line).
 
@@ -214,7 +242,8 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc for the four kernels and g++ for the native helpers, all
+    """nvcc for the four kernels and g++ for the native helpers (BLS among
+    them, which the replica unit's qc mode pairs on), all
     started together; every one must succeed. The kernels' libraries of
     an earlier run are removed first, so every run builds them from the
     sources and has their ptxas reports."""
@@ -235,7 +264,7 @@ def phase_build():
         return out, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         jobs = {
             "fused_accumulate.cu": pool.submit(timed, comb.accumulate_kernel.library),
             "encode_verdict.cu": pool.submit(timed, comb.encode_kernel.library),
@@ -244,6 +273,7 @@ def phase_build():
             "pbft_native.cpp": pool.submit(timed, native.available),
             "ed25519.cpp": pool.submit(timed, native.ed25519_available),
             "canonjson.cpp": pool.submit(timed, native.canonjson_available),
+            "bls381.cpp": pool.submit(timed, native.bls_available),
         }
         results = {k: f.result() for k, f in jobs.items()}
     for name, (ok, _) in results.items():
@@ -1258,6 +1288,80 @@ def phase_verifier():
          e2e_s=sorted(e2e), host_prep_s=prep_s, device_pass_ms=pass_ms,
          stage_ms={"accumulate": split[0], "encode_verdict": split[1], "pass": split[2]},
          stage_ms_runs=stages, profile=profile, warm_s=warm_s, sign_s=sign_s)
+    # the rows of this batch (1,024 messages tiled 8 times) that K1 reads
+    # more than once come from the L2 cache, not from device memory
+    distinct = torch.unique(comb.wire_index_plain(wire, a_idx)).numel()
+    return {"batch": len(items), "accumulate_ms": split[0], "distinct_rows": distinct}
+
+
+# the gather probe: the rows one fused w=4 pass reads at B = 8192 (64 a
+# lane), at random, from a table the size of BASELINE config 3's bank;
+# index_select copies element by element, so the same rows are gathered
+# as 4-, 8- and 16-byte elements
+GATHER_SLOTS, GATHER_BATCH, GATHER_CALLS = 256, 8192, 20
+GATHER_VIEWS = (("int32", 4), ("int64", 8), ("complex128", 16))
+
+
+def gather_probe(row_words, seed):
+    """torch.index_select of GATHER_BATCH x 64 random rows of `row_words`
+    int32 words from the flattened fused w=4 table of a GATHER_SLOTS-key
+    bank, the table viewed in each of GATHER_VIEWS' element types: the
+    median of GATHER_CALLS calls by CUDA events and the rows gathered
+    (not the copy written) a second, for each view; `gbps` is the
+    fastest view's."""
+    import torch
+
+    from simple_pbft_tpu_torch.ops import comb
+
+    npos = comb.npos_for(4)
+    n_rows = GATHER_SLOTS * npos * comb.FWINDOW
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.randint(0, 1 << 30, (n_rows, row_words), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    idx = torch.randint(0, n_rows, (GATHER_BATCH * npos,), device="cuda", generator=gen)
+    gathered = GATHER_BATCH * npos * row_words * 4
+    views = {}
+    for name, size in GATHER_VIEWS:
+        view = table.view(getattr(torch, name))
+        check(view.shape == (n_rows, row_words * 4 // size), f"{name} view {view.shape}")
+        out = torch.index_select(view, 0, idx)
+        check(torch.equal(out[:256].view(torch.int32), table[idx[:256]]),
+              f"index_select ({name}) gathered other rows")
+        ms = cuda_ms(lambda: torch.index_select(view, 0, idx), GATHER_CALLS)
+        views[name] = {"ms": ms, "gbps": gathered / ms / 1e6}
+        del out
+    del table
+    torch.cuda.empty_cache()
+    best = max(views, key=lambda k: views[k]["gbps"])
+    return {"row_bytes": row_words * 4, "rows": GATHER_BATCH * npos,
+            "table_bytes": n_rows * row_words * 4, "gathered_bytes": gathered,
+            "calls": GATHER_CALLS, "views": views, "fastest": best,
+            "ms": views[best]["ms"], "gbps": views[best]["gbps"]}
+
+
+def phase_costmodel(verifier):
+    """The cost model's roofline join: the card's gather rate (dense and
+    packed rows), the model's fused w=4 shape at B = 8192, and the
+    verifier phase's K1 time as an achieved gather rate against the
+    model's `h100` ceiling."""
+    from simple_pbft_tpu_torch.crypto import costmodel
+    from simple_pbft_tpu_torch.ops import comb
+
+    dense = gather_probe(comb.ROW_DENSE, 1)
+    packed = gather_probe(comb.ROW_PACKED, 2)
+    cost = costmodel.shape_cost("fused", 4, verifier["batch"])
+    check(cost["row_bytes"] == 256 and cost["gather_bytes_per_pass"] == dense["gathered_bytes"],
+          f"shape_cost disagrees with the probe's rows: {cost}")
+    peak = costmodel.PEAK_GATHER_GBPS["h100"]
+    check(dense["gbps"] > 0 and packed["gbps"] > 0 and peak > 0, "no gather rate")
+    k1_ms = verifier["accumulate_ms"]
+    achieved = cost["gather_bytes_per_pass"] / k1_ms / 1e6
+    distinct = verifier["distinct_rows"] * cost["row_bytes"] / k1_ms / 1e6
+    emit("costmodel", gather_dense=dense, gather_packed=packed, shape_cost=cost,
+         k1_ms=k1_ms, k1_gather_gbps=achieved, peak_gather_gbps=peak,
+         k1_share_of_peak=achieved / peak, k1_share_of_this_probe=achieved / dense["gbps"],
+         k1_distinct_rows=verifier["distinct_rows"], k1_distinct_gather_gbps=distinct,
+         k1_distinct_share_of_peak=distinct / peak)
 
 
 def profile_pass(prep, tables):
@@ -1446,9 +1550,10 @@ DEPLOY_N, DEPLOY_LOAD = 16, 800
 DEPLOY_CONCURRENCY = DEPLOY_LOAD
 
 
-def _last_json(text, key):
-    """The last line of `text` that is a JSON object holding `key`."""
-    for line in reversed(text.splitlines()):
+def _json_lines(text, key):
+    """The lines of `text` that are JSON objects holding `key`."""
+    recs = []
+    for line in text.splitlines():
         line = line.strip()
         if line.startswith("{"):
             try:
@@ -1456,8 +1561,14 @@ def _last_json(text, key):
             except ValueError:
                 continue
             if key in rec:
-                return rec
-    return None
+                recs.append(rec)
+    return recs
+
+
+def _last_json(text, key):
+    """The last line of `text` that is a JSON object holding `key`."""
+    recs = _json_lines(text, key)
+    return recs[-1] if recs else None
 
 
 def _build_mtimes():
@@ -1648,6 +1759,128 @@ def _run_json(args, key, timeout, env=None):
     check(proc.returncode == 0 and rec is not None,
           f"{args[0]} exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
     return rec
+
+
+def _run_sampled(args, key, timeout):
+    """Run a module of the port while this process samples the card's used
+    memory (mem_get_info, card-wide); -> its JSON lines holding `key`, and
+    the most the card held beyond what it held before, in bytes. The
+    module's process group is gone when this returns, also on failure."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info(0)
+    before = total - free
+    most = [before]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.25):
+            free, total = torch.cuda.mem_get_info(0)
+            most[0] = max(most[0], total - free)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    sampler.start()
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        done.set()
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        sampler.join(timeout=10)
+    recs = _json_lines(out, key)
+    check(proc.returncode == 0 and recs,
+          f"{args[0]} exited {proc.returncode}: {out[-1500:]} {err[-1500:]}")
+    return recs, most[0] - before
+
+
+# the replica unit at the JAX script's defaults: n = 100 (f = 33), 16
+# blocks of 128 requests, modes plain and qc
+RU_BLOCKS = 16
+RU_KEYS = ("n", "quorum", "blocks", "batch", "wire_messages", "completed_blocks", "req_s",
+           "ms_per_req", "elapsed_s", "presign_s", "verify_items", "verify_s", "verify_share",
+           "svc_device_passes", "svc_cpu_passes", "svc_rtt_ms_ema", "kernel_launches",
+           "bank_keys", "platform")
+
+
+def phase_replica_unit():
+    """python -m simple_pbft_tpu_torch.bench_replica_unit --verifier gpu:
+    one replica of n = 100 fed pre-signed traffic, verifying through the
+    verify service on the card, in plain and qc mode."""
+    t0 = time.perf_counter()
+    recs, card_used = _run_sampled(["simple_pbft_tpu_torch.bench_replica_unit",
+                                    "--verifier", "gpu"], "bench", 900)
+    check([r["mode"] for r in recs] == ["plain", "qc"], f"replica unit modes: {recs}")
+    for r in recs:
+        check(r["ok"] and r["completed_blocks"] == RU_BLOCKS and r["platform"] == "gpu",
+              f"replica unit ({r['mode']}) did not commit every block: {r}")
+        check(r["svc_device_passes"] > 0 and all(v > 0 for v in r["kernel_launches"].values()),
+              f"replica unit ({r['mode']}) never reached the card: {r}")
+    emit("replica_unit", modes={r["mode"]: {k: r.get(k) for k in RU_KEYS} for r in recs},
+         card_used_bytes=card_used, wall_s=time.perf_counter() - t0)
+    return {k: sum(r["kernel_launches"][k] for r in recs)
+            for k in ("fused_accumulate", "encode_verdict")}
+
+
+# BASELINE config 3: a committee of 64 (f = 21), 8 clients x 128 requests in
+# flight (the bench's --outstanding is the total), blocks of up to 256, every
+# verify pile on the card (as the committee phase)
+CONFIG3_ARGS = ("--configs", "3", "--verifier", "gpu", "--seconds", "10", "--clients", "8",
+                "--outstanding", "1024", "--batch", "256", "--verify-cpu-cutoff", "0")
+CONFIG3_KEYS = ("config", "n", "clients", "outstanding", "window_s", "committed_req_s",
+                "completed_total", "p50_ms", "p99_ms", "client_timeouts", "replica_exec_min",
+                "replica_exec_max", "verify_calls", "verify_batch_mean", "verify_ms_mean",
+                "svc_device_passes", "svc_device_items", "svc_cpu_passes", "svc_max_coalesced",
+                "svc_rtt_ms_ema", "svc_watchdog_failovers", "svc_cpu_reroute_passes",
+                "bank_keys", "svc_device_shapes")
+
+
+def phase_config3():
+    """python -m simple_pbft_tpu_torch.bench_consensus --configs 3 --verifier
+    gpu: BASELINE config 3 in one process, one shared verifier."""
+    t0 = time.perf_counter()
+    recs, card_used = _run_sampled(["simple_pbft_tpu_torch.bench_consensus", *CONFIG3_ARGS],
+                                   "committed_req_s", 900)
+    rec = recs[-1]
+    shapes = rec["svc_device_shapes"]
+    launches = shapes["kernel_launches_after_warm"]
+    check(rec["config"] == "pbft-n64" and rec["n"] == 64 and rec["outstanding"] == 1024,
+          f"config 3 ran another shape: {rec['config']}, n {rec['n']}, {rec['outstanding']}")
+    check(rec["committed_req_s"] > 0, f"config 3 committed nothing: {rec['committed_req_s']}")
+    check(rec["svc_device_passes"] > 0 and rec["svc_cpu_passes"] == 0
+          and rec["svc_cpu_reroute_passes"] == 0,
+          f"config 3: {rec['svc_device_passes']} device passes, {rec['svc_cpu_passes']} CPU, "
+          f"{rec['svc_cpu_reroute_passes']} rerouted")
+    check(rec["svc_watchdog_failovers"] == 0 and shapes["post_warm_compiles"] == 0,
+          f"config 3 left the device or met a first-time shape: {shapes}")
+    check(launches["fused_accumulate"] > 0 and launches["encode_verdict"] > 0
+          and launches["ladder_verify"] == 0, f"config 3 launches: {launches}")
+    emit("config3", args=list(CONFIG3_ARGS), record={k: rec.get(k) for k in CONFIG3_KEYS},
+         card_used_bytes=card_used, wall_s=time.perf_counter() - t0)
+    return {k: launches[k] for k in ("fused_accumulate", "encode_verdict")}
+
+
+# the sim's STORM scenario (tests/test_sim.py), run twice
+SIM_SCENARIO = dict(seed=11, n=4, requests=8, horizon=10.0, probes=2,
+                    gen=dict(crashes=1, partition_windows=1, drop_windows=1))
+
+
+def phase_sim():
+    """The port's deterministic simulator (no kernel: the committee
+    verifies on the CPU, as the JAX sim's does): the same seed twice must
+    pass its oracles with the same trace fingerprint."""
+    from simple_pbft_tpu_torch.sim import Scenario, run_scenario
+
+    runs = [run_scenario(Scenario(**SIM_SCENARIO)) for _ in range(2)]
+    for r in runs:
+        check(r.ok, f"sim scenario failed: {r.failure}")
+    check(runs[0].fingerprint == runs[1].fingerprint,
+          f"sim fingerprints differ: {[r.fingerprint for r in runs]}")
+    emit("sim", scenario=SIM_SCENARIO, fingerprint=runs[0].fingerprint,
+         committed=runs[0].committed, vtime_s=runs[0].vtime_s,
+         wall_s=[r.wall_s for r in runs], coverage=runs[0].coverage)
 
 
 # the bench's runs: its defaults (fused, w = 5, dense rows), w = 4 (the
@@ -1854,12 +2087,16 @@ def main(argv=None):
     timed("device", phase_device)
     timed("build", phase_build)
     timed("field", phase_field)
+    timed("sim", phase_sim)
     rows = timed("kernel", phase_kernel)
     modes = timed("modes", phase_modes)
     mesh = timed("mesh", phase_mesh)
-    timed("verifier", phase_verifier)
+    verifier = timed("verifier", phase_verifier)
+    timed("costmodel", phase_costmodel, verifier)
     by_path = {"committee": timed("committee", phase_committee, args.view_timeout)}
     by_path["deployment"] = timed("deployment", phase_deployment)
+    by_path["replica_unit"] = timed("replica_unit", phase_replica_unit)
+    by_path["config3"] = timed("config3", phase_config3)
     by_path["modes"] = _modes_launches(modes)
     for kernel, count in by_path["modes"].items():
         check(count > 0, f"the modes phase's drives never launched {kernel}")

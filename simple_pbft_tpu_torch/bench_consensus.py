@@ -33,7 +33,9 @@ kernels' plain versions) in place of the BENCH_FORCE_CPU / JAX_PLATFORMS
 / XLA_FLAGS environment set-up, which the JAX file did at import.
 ``--verifier`` defaults to ``gpu`` (the JAX file's default is ``cpu``), so
 a bare run verifies on the card; without CUDA it raises. ``--verifier
-cpu`` asks for the CPU.
+cpu`` asks for the CPU. ``--verify-cpu-cutoff N`` fixes the verify
+service's CPU route to piles of at most N items (0: every pile on the
+device); the gpu record adds the bank's key count (`bank_keys`).
 """
 
 from __future__ import annotations
@@ -166,6 +168,7 @@ async def run_config(
     fault_spec: str = None,
     verify_deadline: float = 60.0,
     verify_max_pending: int = 65536,
+    verify_cpu_cutoff: int = None,
     status_port_base: int = 0,
     flight_dir: str = None,
     trace_sample: float = 0,
@@ -256,6 +259,7 @@ async def run_config(
             front,
             max_pending=verify_max_pending,
             dispatch_deadline=verify_deadline if verify_deadline > 0 else None,
+            cpu_cutoff=verify_cpu_cutoff,
         )
         factory = lambda: service  # noqa: E731
 
@@ -608,6 +612,7 @@ async def run_config(
             # post_warm_compiles == 0 — a nonzero value means the run
             # met a first-time shape mid-window
             svc_device_shapes=shared_verifier.shape_snapshot(),
+            bank_keys=len(shared_verifier._bank._index),
         )
 
     telemetry_end = _committee_telemetry(
@@ -875,6 +880,12 @@ async def main() -> None:
         "admission-rejected with Overloaded instead of queued",
     )
     ap.add_argument(
+        "--verify-cpu-cutoff", type=int, default=None,
+        help="gpu verify service: piles of at most this many items verify "
+        "on the CPU (default: the service's adaptive cutoff; 0 sends every "
+        "pile to the device)",
+    )
+    ap.add_argument(
         "--status-port-base", type=int, default=0,
         help="live telemetry: serve each replica's /metrics.json at "
         "127.0.0.1:(base+i) during the run (0 disables) — scrape with "
@@ -1004,6 +1015,7 @@ async def main() -> None:
             fault_spec=replay_schedule or args.fault_schedule,
             verify_deadline=args.verify_deadline,
             verify_max_pending=args.verify_max_pending,
+            verify_cpu_cutoff=args.verify_cpu_cutoff,
             status_port_base=args.status_port_base,
             flight_dir=args.flight_dir,
             trace_sample=args.trace_sample,

@@ -203,6 +203,7 @@ class Client:
                         sig = bytes.fromhex(msg.sig)
                     except ValueError:
                         continue
+                    # pbftlint: disable=PBL001 -- client-plane loop, not a replica: one-item Ed25519 per reply (~0.1ms native); a to_thread hop per reply would cost more than the verify
                     ok = self.verifier.verify_batch(
                         [
                             BatchItem(
@@ -397,6 +398,7 @@ class Client:
                 sig = bytes.fromhex(msg.sig)
             except ValueError:
                 return
+            # pbftlint: disable=PBL001 -- client-plane loop: one-item Ed25519 per ConfigReply, bounded at one vote slot per known replica (the config-vote table)
             ok = self.verifier.verify_batch(
                 [BatchItem(pubkey=pub, msg=msg.signing_payload(), sig=sig)]
             )

@@ -362,6 +362,7 @@ def challenge_batch(
     """(n, 32) R encodings, (n, 32) A encodings, n message byte strings ->
     (n, 32) uint8 little-endian challenge scalars (mod L, canonical)."""
     n = len(msgs)
+    # pbftlint: disable=PBL005 -- ctypes boundary shape invariant on arrays produced by our own host-prep; a wrong shape here is a programming error, not input validation
     assert r.shape == (n, 32) and a.shape == (n, 32), (r.shape, a.shape)
     out = np.empty((n, 32), dtype=np.uint8)
     if n == 0:
@@ -386,6 +387,7 @@ def sc_reduce_batch(digests: np.ndarray) -> np.ndarray:
     """(n, 64) uint8 little-endian 512-bit values -> (n, 32) uint8
     canonical scalars mod L (the Ed25519 group order)."""
     n = len(digests)
+    # pbftlint: disable=PBL005 -- ctypes boundary shape invariant, same contract as the challenge-scalar twin above
     assert digests.shape == (n, 64), digests.shape
     out = np.empty((n, 32), dtype=np.uint8)
     if n == 0:

@@ -45,7 +45,8 @@ def _int_to_limbs_np(v: int) -> np.ndarray:
     for i in range(NLIMB):
         out[i] = v & MASK
         v >>= RADIX
-    assert v == 0, "value exceeds 255 bits"
+    if v:
+        raise ValueError("value exceeds 255 bits")
     return out
 
 

@@ -68,9 +68,11 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     step = make_comb_quorum_step(mesh)
     verdict, counts = step(*args, onehot)
     verdict = gather(verdict)
-    assert verdict.all(), f"valid votes rejected: {verdict}"
+    if not verdict.all():
+        raise RuntimeError(f"valid votes rejected: {verdict}")
     for c in counts:
-        assert (c.cpu().numpy() == batch // n_inst).all(), f"bad quorum tally: {c}"
+        if not (c.cpu().numpy() == batch // n_inst).all():
+            raise RuntimeError(f"bad quorum tally: {c}")
 
     # the fused engine over the same mesh: each position runs the pass on
     # its shard of the batch, on its device
@@ -85,8 +87,10 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     bad = bytearray(items[1].sig)
     bad[2] ^= 4
     items[1] = BatchItem(items[1].pubkey, items[1].msg, bytes(bad))
+    want = [i != 1 for i in range(batch)]
     got = v.verify_batch(items)
-    assert got == [i != 1 for i in range(batch)], got
+    if got != want:
+        raise RuntimeError(f"meshed verdicts {got}, expected {want}")
 
     # the coalescing service folds concurrent replicas' submissions into
     # one sharded device pass, forced past the CPU cutoff so the dry run
@@ -98,8 +102,11 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         v.verify_batch(items * 3)
         futs = [svc.submit(items) for _ in range(3)]
         for f in futs:
-            assert f.result(120) == [i != 1 for i in range(batch)]
-        assert svc.device_passes >= 1
+            got = f.result(120)
+            if got != want:
+                raise RuntimeError(f"coalesced verdicts {got}, expected {want}")
+        if svc.device_passes < 1:
+            raise RuntimeError("the coalesced pass never reached the device")
     finally:
         svc.close()
 

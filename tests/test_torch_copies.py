@@ -24,11 +24,15 @@ COPIES = [
     "workload.py",
     "faults.py",
     "client_cli.py",
+    "sim.py",
+    "crypto/costmodel.py",
 ]
 # (pattern in the JAX source, the port's text): the only edits outside
 # comments and docstrings. The port's binary names its package; the
-# spec_divergence help text of the fault kinds drops its tracker tag.
+# spec_divergence help text of the fault kinds drops its tracker tag; the
+# cost model's one peak is the card's gather rate, measured on the card.
 NAMED_EDITS = {
+    "crypto/costmodel.py": [(r'\{"v5lite": 12\.1\}', '{"h100": 402.8}')],
     "client_cli.py": [(r'description="simple_pbft_tpu client"',
                        'description="simple_pbft_tpu_torch client"')],
     "faults.py": [(r'"plane, [A-Z]+ \d+\)"', '"plane)"')],

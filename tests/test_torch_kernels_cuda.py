@@ -28,7 +28,9 @@ a card and no JAX it runs on its own:
 - the quorum tally kernel equals `quorum_tally_plain` on one-hot rows
   with padding and on random int32 weights, at B = 1 to 8,193 and up to
   1,000 instances; both quorum steps on Mesh(["cuda:0"] * 4) equal the
-  same steps on Mesh(["cpu"] * 4), with four launches of each kernel.
+  same steps on Mesh(["cpu"] * 4), with four launches of each kernel;
+- the replica-unit bench with the gpu verifier makes device passes of
+  both kernels in plain and qc mode.
 """
 
 import numpy as np
@@ -490,3 +492,22 @@ def test_mesh_across_cards_equals_the_oracle():
         assert v.verify_batch(more) == [True] * 4 + oracle[:4], mode
         for d in mesh.devices[1:]:
             assert torch.equal(v._bank.device_tables(d).cpu(), v._bank.device_tables().cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "qc"])
+def test_replica_unit_verifies_on_the_card(card, mode, monkeypatch):
+    """The replica-unit bench with --verifier gpu at n = 16, 4 blocks of
+    128: the first sweep's 604 signatures are over the verify service's
+    starting CPU cutoff (375), so they make a device pass of both kernels."""
+    import asyncio
+
+    from simple_pbft_tpu_torch import bench_replica_unit
+
+    monkeypatch.setenv("RU_MAX_SWEEP", "1024")
+    rec = asyncio.run(bench_replica_unit.run_mode(mode, 16, 4, 128, verifier="gpu"))
+    assert rec["ok"] and rec["completed_blocks"] == 4 and rec["platform"] == "gpu"
+    assert rec["svc_device_passes"] > 0, rec
+    assert rec["kernel_launches"]["fused_accumulate"] > 0, rec
+    assert rec["kernel_launches"]["encode_verdict"] > 0, rec
+    assert rec["bank_keys"] == 16 + bench_replica_unit.N_CLIENTS
