@@ -58,13 +58,20 @@ the sources in the repository, then, printing one JSON line per phase:
 6. mesh     — the multi-device path on Mesh(["cuda:0"] * 4), one card
               holding four positions, at BASELINE config 3's sizes (its
               8,192-item batch as 128 instances of 64 votes): the tally
-              kernel against quorum_tally_plain at B = 1, 7, 8, 512, 8192
-              and 8,193 by n_inst = 1, 2, 128 and 1,000, exactly, its
-              times and bound at 8192 x 128; both quorum steps
+              kernel, added into a nonzero vector, against
+              quorum_tally_plain at B = 1, 2, 7, 8, 33, 512, 2048, 8192
+              and 8,193 by n_inst = 1, 2, 3, 4, 128, 130 and 1,000 on
+              both load paths (16-byte and scalar), and on wrapping
+              weights, exactly; at 8192 x 128 on each path its one-call,
+              back-to-back and profiler times and its wrapper's host
+              time, beside the bound and torch.mv's time where it runs;
+              both quorum steps
               (parallel/sharded_verify.py) on the mesh of 4 and a mesh of
               1, verdicts equal to the oracle and counts equal to its
               tally on every position, k launches of each kernel on a
-              mesh of k, and a profiler trace of one comb step; meshed
+              mesh of k, and a profiler trace of one comb step (k tally
+              launches, one zeroed counts vector and no psum add on the
+              one card); meshed
               GpuVerifiers in fused w=4 dense, comb and ladder on the
               8,192 items, bitmaps equal to the oracle, k launches a pass;
               the port's dryrun_multichip(4); an n=4 committee sharing one
@@ -118,8 +125,15 @@ the sources in the repository, then, printing one JSON line per phase:
               128 requests in flight and every verify pile on the card.
               It must commit, with device passes only, no watchdog
               failover, no first-time shape after the warm and launches of
-              both kernels. Both 9b and 9c print the card memory their
-              process used;
+              both kernels;
+9d. config4 (a main path) — python -m
+              simple_pbft_tpu_torch.bench_consensus --configs 4 --verifier
+              gpu --seconds 10 --verify-cpu-cutoff 0: BASELINE config 4,
+              256 replicas (f = 85) and 8 clients in one process with BLS
+              quorum certificates, 264 keys in a fused w=4 bank of 512
+              slots, the reference's cap. It must commit with no key over
+              the cap and the same checks as 9c. 9b, 9c and 9d print the
+              card memory their process used;
 10. bench     — python -m simple_pbft_tpu_torch.bench at its defaults
               (fused, w = 5, dense rows), at BENCH_WINDOW=4 and at
               BENCH_MODE=comb (no error, on the card, each line carrying
@@ -127,7 +141,7 @@ the sources in the repository, then, printing one JSON line per phase:
               simple_pbft_tpu_torch.bench_consensus --configs 2 --verifier
               gpu --seconds 10 (commits, device passes);
 11. the kernels line (launches of the committee, the deployment, the
-   replica unit, config 3, the modes phase's verifier drives and the
+   replica unit, configs 3 and 4, the modes phase's verifier drives and the
    mesh phase's drives; each kernel's `configs` map; K9's launches are
    the ladder drive's), and last the device line.
 
@@ -465,7 +479,7 @@ def phase_kernel():
 
     dev = torch.device("cuda")
     n_keys = 64
-    bank = KeyBank(initial_capacity=n_keys, device=dev)
+    bank = KeyBank(initial_capacity=n_keys, device=dev, mode="fused")
     for i in range(n_keys):
         bank.lookup(ref.public_key(i.to_bytes(2, "little") * 16))
     check(len(bank._index) == n_keys, "bank did not take 64 keys")
@@ -791,20 +805,41 @@ def _ladder_check(items, what):
     return row, arrays
 
 
-def _kernel_us(fn, name, calls=5):
-    """torch.profiler's device time of the kernel `name` over `calls`
-    calls of fn, median in us."""
+# torch.profiler on the H100 now and then gives a short window's trace
+# with no device event at all, not even the copies the work must make (it
+# lost a whole one-pass trace of the verifier phase once): the tracer's
+# loss, not the work's. Such a trace is taken again, and each window is
+# padded with idle host time on both sides
+TRACE_TRIES, TRACE_PAD_S = 3, 0.01
+
+
+def _device_events(fn):
+    """fn(), which must run work on the card, under torch.profiler ->
+    (the trace's device events, the traces taken). A trace that holds no
+    device event is taken again, up to TRACE_TRIES traces in all; a trace
+    that holds any is returned as it is, for the caller to judge."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for tries in range(1, TRACE_TRIES + 1):
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events, tries
+    raise AssertionError(f"{TRACE_TRIES} traces in a row held no device event")
+
+
+def _kernel_us(fn, name, calls=5):
+    """torch.profiler's device time of the kernel `name` over `calls`
+    calls of fn, median in us."""
+    fn()
+    events, _ = _device_events(lambda: [fn() for _ in range(calls)])
+    us = [e.time_range.elapsed_us() for e in events if name in e.name]
     check(len(us) == calls, f"profiler saw {len(us)} launches of {name}, not {calls}")
     return statistics.median(us)
 
@@ -984,10 +1019,14 @@ def phase_modes():
 # votes, on a mesh of 4 positions of the one card
 MESH_INST, MESH_VOTES, MESH_K = 128, 64, 4
 # 2048 and 2 are the shard shapes the mesh of 4 gives the kernel: B / MESH_K,
-# and the dry run's 2 votes a position
-TALLY_BATCHES = (1, 2, 7, 8, 512, MESH_INST * MESH_VOTES // MESH_K, 8192, 8193)
-TALLY_INSTANCES = (1, 2, 128, 1000)
+# and the dry run's 2 votes a position; 33 a partial row block. n_inst 4
+# and 128 take the 16-byte loads on an aligned base, the others (and a
+# base 4 bytes off) the scalar path
+TALLY_BATCHES = (1, 2, 7, 8, 33, 512, MESH_INST * MESH_VOTES // MESH_K, 8192, 8193)
+TALLY_INSTANCES = (1, 2, 3, 4, 128, 130, 1000)
+TALLY_BASES = {"aligned": 0, "offset": 1}  # int32 elements before the one-hot
 TALLY_TOP = (8192, 128)
+HOST_CALLS = 2000  # unsynchronised wrapper calls timed for its host time
 
 
 def tally_bound(onehot, verdict):
@@ -1033,71 +1072,158 @@ class _Counted:
         return out, got
 
 
+def _tally_onehot(rows, base):
+    """`rows` on the card, contiguous, `TALLY_BASES[base]` int32 elements
+    past the start of its buffer (16-byte aligned at 0, 4 bytes off at 1)."""
+    import torch
+
+    skip = TALLY_BASES[base]
+    buf = torch.empty(rows.size + skip, dtype=torch.int32, device="cuda")
+    t = buf[skip:].view(rows.shape)
+    t.copy_(torch.from_numpy(rows))
+    return t
+
+
+def _host_us(fn, calls=HOST_CALLS):
+    """Median host time of one unsynchronised call of fn, in us."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def _tally_library(onehot, verdict):
+    """The one PyTorch call that could compute the tally, torch.mv of the
+    one-hot's transpose by the verdicts in int32 -> its ms where it runs
+    and agrees with the plain version, else None and why."""
+    import torch
+
+    from simple_pbft_tpu_torch.ops import quorum
+
+    flags = verdict.to(torch.int32)
+    try:
+        got = torch.mv(onehot.t(), flags)
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # the yardstick only: the port never calls it
+        return None, f"torch.mv in int32 on CUDA raises: {str(e).splitlines()[0]}"
+    if not torch.equal(got, quorum.quorum_tally_plain(onehot, verdict)):
+        return None, "torch.mv in int32 on CUDA runs but disagrees with the plain version"
+    return cuda_ms(lambda: torch.mv(onehot.t(), flags), 20, 3), "torch.mv(onehot.t(), verdict)"
+
+
 def _mesh_tally():
     """(a) The tally kernel against quorum_tally_plain, exactly, at every B
-    and n_inst of the grid, with all-zero padding rows; its one-call and
-    back-to-back times, the plain version's and the bound at B = 8192,
-    n_inst = 128."""
+    and n_inst of the grid, on both load paths (an aligned base and one 4
+    bytes off), with all-zero padding rows, added into a nonzero `out`;
+    random weights that wrap at B = 8192, n_inst = 128. Then at that shape
+    on each path: one call and back-to-back times by CUDA events, the
+    profiler's kernel time and the wrapper's host time, with `out=` as the
+    quorum step calls it (and without, which zeroes a fresh vector); the
+    plain version's time, the library call's and the bound."""
     import numpy as np
     import torch
 
     from simple_pbft_tpu_torch.ops import quorum
 
     rng = np.random.default_rng(11)
-    errs = {}
+    errs, paths = {}, {"vec4": 0, "scalar": 0}
     for batch in TALLY_BATCHES:
         for n_inst in TALLY_INSTANCES:
             rows = np.eye(n_inst, dtype=np.int32)[rng.integers(0, n_inst, batch)]
             rows[::7] = 0  # padding rows
-            onehot = torch.from_numpy(rows).to("cuda")
             verdict = torch.from_numpy(rng.random(batch) < 0.9).to("cuda")
-            got = quorum.tally_kernel(onehot, verdict)
-            want = quorum.quorum_tally_plain(onehot, verdict)
-            torch.cuda.synchronize()
-            errs[f"{batch}x{n_inst}"] = _max_err(got, want)
-            check(torch.equal(got, want), f"quorum_tally != plain at B={batch}, n_inst={n_inst}")
-            if (batch, n_inst) == TALLY_TOP:
-                top = onehot, verdict
-    onehot, verdict = top
+            start = rng.integers(-2**31, 2**31, n_inst, dtype=np.int64).astype(np.int32)
+            for base in TALLY_BASES:
+                onehot = _tally_onehot(rows, base)
+                vec = quorum.vector_path(onehot)
+                check(vec == (base == "aligned" and n_inst % 4 == 0),
+                      f"tally path at {batch}x{n_inst} {base}: vec4={vec}")
+                paths["vec4" if vec else "scalar"] += 1
+                out = torch.from_numpy(start).to("cuda")
+                quorum.tally_kernel(onehot, verdict, out=out)
+                want = (torch.from_numpy(start).to("cuda").long()
+                        + quorum.quorum_tally_plain(onehot, verdict).long()).to(torch.int32)
+                torch.cuda.synchronize()
+                errs[f"{batch}x{n_inst}_{base}"] = _max_err(out, want)
+                check(torch.equal(out, want),
+                      f"quorum_tally != plain at B={batch}, n_inst={n_inst}, {base}")
+    batch, n_inst = TALLY_TOP
+    verdict = torch.from_numpy(rng.random(batch) < 0.9).to("cuda")
+    weights = rng.integers(-2**31, 2**31, (batch, n_inst), dtype=np.int64).astype(np.int32)
+    rows = np.eye(n_inst, dtype=np.int32)[rng.integers(0, n_inst, batch)]
+    rows[::7] = 0
+    for base in TALLY_BASES:
+        w = _tally_onehot(weights, base)
+        got = quorum.tally_kernel(w, verdict)
+        want = quorum.quorum_tally_plain(w, verdict)
+        torch.cuda.synchronize()
+        errs[f"weights_{base}"] = _max_err(got, want)
+        check(torch.equal(got, want), f"quorum_tally != plain on wrapping weights, {base}")
+    by_path = {}
+    for base, path in (("aligned", "vec4"), ("offset", "scalar")):
+        onehot = _tally_onehot(rows, base)
+        out = torch.zeros(n_inst, dtype=torch.int32, device="cuda")
+
+        def call():
+            return quorum.tally_kernel(onehot, verdict, out=out)
+
+        by_path[path] = {
+            "kernel_ms": cuda_ms(call, 20, 3),
+            "back_to_back_ms": cuda_ms(call, 5, 3, BACK_TO_BACK),
+            "host_us": _host_us(call),
+            "host_us_fresh_out": _host_us(lambda: quorum.tally_kernel(onehot, verdict)),
+            # the kernel alone: the wrapper's host time exceeds the
+            # kernel's, so neither CUDA-event timing shows it
+            "profiler_us": _kernel_us(call, "quorum_tally_kernel"),
+        }
+    onehot = _tally_onehot(rows, "aligned")
+    library_ms, library = _tally_library(onehot, verdict)
+    # the least a kernel takes: the fill that zeroes a step's counts vector
+    fill = torch.zeros(n_inst, dtype=torch.int32, device="cuda")
+    fill_us = _kernel_us(fill.zero_, "Fill")
     return {
         "max_abs_err": max(errs.values()), "max_abs_err_by_shape": errs,
-        "batch": TALLY_TOP[0], "n_inst": TALLY_TOP[1],
-        "kernel_ms": cuda_ms(lambda: quorum.tally_kernel(onehot, verdict), 20, 3),
-        "back_to_back_ms": cuda_ms(lambda: quorum.tally_kernel(onehot, verdict), 5, 3,
-                                   BACK_TO_BACK),
+        "shapes_by_path": paths, "batch": batch, "n_inst": n_inst,
+        **by_path["vec4"], "by_path": by_path,
         "plain_ms": cuda_ms(lambda: quorum.quorum_tally_plain(onehot, verdict), 20, 3),
-        # the kernel alone: back to back, the wrapper's host time (about
-        # 0.03 ms) still exceeds the kernel's, so neither timing hides it
-        "profiler_us": _kernel_us(lambda: quorum.tally_kernel(onehot, verdict),
-                                  "quorum_tally_kernel"),
+        "library_ms": library_ms, "library": library, "fill_us": fill_us,
         **tally_bound(onehot, verdict),
     }
 
 
-def _profile_step(step, args, k):
-    """torch.profiler over one comb quorum step on the mesh: exactly k
-    launches each of K1, the verdict kernel's limb entry and the tally,
-    besides copies, memsets, comb_verify_kernel's row-base multiply (k)
-    and the psum's adds (k - 1)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def _profile_step(step, args, mesh):
+    """torch.profiler over one comb quorum step on the mesh of k positions
+    over d distinct devices: exactly k launches each of K1, the verdict
+    kernel's limb entry and the tally; exactly d zeroings of a counts
+    vector (a memset or a fill kernel: the step's one zeroed vector a
+    device; the tally kernel zeroes nothing); d - 1 psum adds; k row-base
+    multiplies (comb_verify_kernel's); besides those, only copies."""
+    k, d = mesh.size, len(mesh.distinct())
     step(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(*args)
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.name.startswith(("Memcpy", "Memset"))]
+    traced, tries = _device_events(lambda: step(*args))
+    events = [e for e in traced if not e.name.startswith("Memcpy")]
     names = ("fused_accumulate_kernel", "encode_verdict_limbs_kernel", "quorum_tally_kernel")
     count = {n: sum(1 for e in events if n in e.name) for n in names}
     others = [e.name for e in events if not any(n in e.name for n in names)]
+    zeroings = [n for n in others if n.startswith("Memset") or "fill" in n.lower()]
+    memsets = [n for n in zeroings if n.startswith("Memset")]
+    others = [n for n in others if n not in zeroings]
     adds = [n for n in others if "add" in n.lower()]
     muls = [n for n in others if "mul" in n.lower()]
-    check(all(c == k for c in count.values()) and len(adds) == k - 1 and len(muls) == k
+    check(all(c == k for c in count.values()) and len(zeroings) == d
+          and len(adds) == d - 1 and len(muls) == k
           and len(others) == len(adds) + len(muls),
-          f"profiled comb step on {k}: {count}, others {others}")
-    return {"kernels": count, "psum_adds": len(adds), "row_base_muls": len(muls),
+          f"profiled comb step on {k} positions of {d} devices: {count}, zeroings "
+          f"{zeroings}, others {others}")
+    return {"kernels": count, "traces": tries, "zeroings": len(zeroings),
+            "memsets": len(memsets), "psum_adds": len(adds), "row_base_muls": len(muls),
             "kernel_us": {n: sum(e.time_range.elapsed_us() for e in events if n in e.name)
                           for n in names}}
 
@@ -1160,7 +1286,7 @@ def phase_mesh():
             row = {"launches": launches, "matches_oracle": True,
                    "step_ms": cuda_ms(lambda: step(*args), 5, 1)}
             if kind == "comb":
-                row["profile"] = _profile_step(step, args, k)
+                row["profile"] = _profile_step(step, args, mesh)
             steps[f"{kind}_mesh{k}"] = row
 
     # (c) the meshed verifiers' passes
@@ -1369,23 +1495,22 @@ def profile_pass(prep, tables):
     arrays up, the pass, verdicts down): the device must run exactly the
     two kernels, besides copies."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from simple_pbft_tpu_torch.ops import comb
 
     dev = tables.device
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def one_pass():
         wire, a_idx, pre = (torch.from_numpy(a).to(dev) for a in prep.arrays())
         comb.fused_verify_wire_kernel(wire, a_idx, tables, pre).cpu()
-        torch.cuda.synchronize()
-    device_events = [e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    device_events, tries = _device_events(one_pass)
     copies = [e.name for e in device_events if e.name.startswith(("Memcpy", "Memset"))]
     kernels = [e.name for e in device_events if not e.name.startswith(("Memcpy", "Memset"))]
     check(len(kernels) == 2 and "fused_accumulate_kernel" in kernels[0]
           and "encode_verdict_kernel" in kernels[1],
           f"profiled pass ran {kernels}, not the two kernels")
-    return {"kernels": kernels, "copies": len(copies),
+    return {"kernels": kernels, "copies": len(copies), "traces": tries,
             "kernel_us": [e.time_range.elapsed_us() for e in device_events
                           if e.name in kernels]}
 
@@ -1862,6 +1987,46 @@ def phase_config3():
     return {k: launches[k] for k in ("fused_accumulate", "encode_verdict")}
 
 
+# BASELINE config 4 (bls-qc-n256): 256 replicas and 8 clients in one
+# process, BLS quorum certificates, every verify pile on the card; 264 keys
+# in a fused w=4 bank of 512 slots, the reference's cap
+CONFIG4_ARGS = ("--configs", "4", "--verifier", "gpu", "--seconds", "10",
+                "--verify-cpu-cutoff", "0")
+CONFIG4_KEYS = CONFIG3_KEYS + ("qc_mode", "seconds", "bank_max_keys", "bank_slots",
+                               "keys_over_cap", "svc_cpu_items")
+
+
+def phase_config4():
+    """python -m simple_pbft_tpu_torch.bench_consensus --configs 4 --verifier
+    gpu --verify-cpu-cutoff 0: BASELINE config 4 in one process under the
+    restored bank cap. Every key of the committee and its clients must fit
+    the bank (the reference's failure on its chip was client keys over the
+    cap), and every pass must be on the card."""
+    t0 = time.perf_counter()
+    recs, card_used = _run_sampled(["simple_pbft_tpu_torch.bench_consensus", *CONFIG4_ARGS],
+                                   "committed_req_s", 900)
+    rec = recs[-1]
+    wall = time.perf_counter() - t0
+    shapes = rec["svc_device_shapes"]
+    launches = shapes["kernel_launches_after_warm"]
+    emit("config4", args=list(CONFIG4_ARGS), record={k: rec.get(k) for k in CONFIG4_KEYS},
+         card_used_bytes=card_used, wall_s=wall, boot_s=wall - rec["seconds"])
+    check(rec["config"] == "bls-qc-n256" and rec["n"] == 256 and rec["qc_mode"],
+          f"config 4 ran another shape: {rec['config']}, n {rec['n']}")
+    check(rec["bank_max_keys"] == 512 and rec["keys_over_cap"] == 0,
+          f"config 4's bank: cap {rec['bank_max_keys']}, {rec['keys_over_cap']} keys over it")
+    check(rec["committed_req_s"] > 0, f"config 4 committed nothing: {rec['committed_req_s']}")
+    check(rec["svc_device_passes"] > 0 and rec["svc_cpu_passes"] == 0
+          and rec["svc_cpu_reroute_passes"] == 0,
+          f"config 4: {rec['svc_device_passes']} device passes, {rec['svc_cpu_passes']} CPU, "
+          f"{rec['svc_cpu_reroute_passes']} rerouted")
+    check(rec["svc_watchdog_failovers"] == 0 and shapes["post_warm_compiles"] == 0,
+          f"config 4 left the device or met a first-time shape: {shapes}")
+    check(launches["fused_accumulate"] > 0 and launches["encode_verdict"] > 0
+          and launches["ladder_verify"] == 0, f"config 4 launches: {launches}")
+    return {k: launches[k] for k in ("fused_accumulate", "encode_verdict")}
+
+
 # the sim's STORM scenario (tests/test_sim.py), run twice
 SIM_SCENARIO = dict(seed=11, n=4, requests=8, horizon=10.0, probes=2,
                     gen=dict(crashes=1, partition_windows=1, drop_windows=1))
@@ -2051,11 +2216,18 @@ def kernel_rows(rows, by_path, modes, mesh):
         "ms": tally["kernel_ms"],
         "back_to_back_ms": tally["back_to_back_ms"],
         "profiler_us": tally["profiler_us"],
+        "host_us": tally["host_us"],
         "plain_ms": tally["plain_ms"],
         "bound_ms": tally["bound_ms"],
         "bound_by": tally["bound_by"],
-        "library_ms": None,
-        "library": "none: no single PyTorch call computes an int32 one-hot tally on CUDA",
+        "library_ms": tally["library_ms"],
+        "library": tally["library"],
+        "configs": {path: {"batch": tally["batch"], "n_inst": tally["n_inst"],
+                           "ms": r["kernel_ms"], "back_to_back_ms": r["back_to_back_ms"],
+                           "profiler_us": r["profiler_us"], "host_us": r["host_us"],
+                           "bound_ms": tally["bound_ms"], "bound_by": tally["bound_by"],
+                           "shapes_checked": tally["shapes_by_path"][path]}
+                    for path, r in tally["by_path"].items()},
     }]
 
 
@@ -2097,6 +2269,7 @@ def main(argv=None):
     by_path["deployment"] = timed("deployment", phase_deployment)
     by_path["replica_unit"] = timed("replica_unit", phase_replica_unit)
     by_path["config3"] = timed("config3", phase_config3)
+    by_path["config4"] = timed("config4", phase_config4)
     by_path["modes"] = _modes_launches(modes)
     for kernel, count in by_path["modes"].items():
         check(count > 0, f"the modes phase's drives never launched {kernel}")

@@ -613,6 +613,12 @@ async def run_config(
             # met a first-time shape mid-window
             svc_device_shapes=shared_verifier.shape_snapshot(),
             bank_keys=len(shared_verifier._bank._index),
+            # the bank's cap, and the committee's and clients' keys that
+            # fell over it (each such key's items verify on the CPU)
+            bank_max_keys=shared_verifier._bank._max_keys,
+            bank_slots=shared_verifier._bank._cap,
+            keys_over_cap=sum(kp.pub not in shared_verifier._bank._index
+                              for kp in com.keys.values()),
         )
 
     telemetry_end = _committee_telemetry(

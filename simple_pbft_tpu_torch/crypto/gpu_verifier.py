@@ -43,7 +43,6 @@ tests do); without a CUDA device it raises instead of falling back.
 from __future__ import annotations
 
 import logging
-import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
@@ -145,14 +144,6 @@ def _bucket_size(n: int) -> int:
     return BUCKETS[-1]
 
 
-def _table_budget_bytes(device: torch.device) -> int:
-    """A quarter of the memory of the device that holds the tables: the
-    card's total memory for CUDA, physical host memory for the CPU."""
-    if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).total_memory // 4
-    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") // 4
-
-
 class KeyBank:
     """Cache of per-pubkey comb tables (the committee's key set).
 
@@ -165,10 +156,10 @@ class KeyBank:
 
     `max_keys` bounds the bank: a Byzantine sender must not be able to
     grow device memory by spraying fresh valid curve points through the
-    Verifier seam. The default is a quarter of the device's memory
-    (`_table_budget_bytes`) over the bytes of one key's table in this mode,
-    window and layout. Keys beyond the cap report UNCACHED and are
-    verified on the CPU fallback path.
+    Verifier seam. The default is the JAX bank's, the same on every
+    device: 1,024 keys in comb mode, and in fused mode as many keys as
+    fit in about 2 GiB of tables in this window and layout. Keys beyond
+    the cap report UNCACHED and are verified on the CPU fallback path.
     """
 
     UNCACHED = -2
@@ -178,7 +169,7 @@ class KeyBank:
         initial_capacity: int = 8,
         max_keys: Optional[int] = None,
         device="cuda",
-        mode: str = "fused",
+        mode: str = "comb",
         window: int = WINDOW_BITS,
     ):
         if mode not in ("comb", "fused"):
@@ -193,11 +184,16 @@ class KeyBank:
         if mode == "comb":
             self._make_table = comb.comb_table_np
             self._rows_per_key = comb.NPOS * comb.WINDOW
+            default_max = 1024  # ~260 KB a key
         else:
             self._make_table = lambda pt: comb.fused_table_np(pt, window)
             self._rows_per_key = comb.npos_for(window) * (1 << (2 * window))
-        key_bytes = self._rows_per_key * self.row * 4
-        default_max = max(8, _table_budget_bytes(self.device) // key_bytes)
+            # about 2 GiB of tables whatever the window and layout (w=4
+            # dense: ~4.2 MB a key -> 512 keys; w=5: 157; w=6: 46; packed
+            # rows twice as many): an n = 256 committee and its clients
+            # are 264 keys, and a tighter cap pushes the client keys,
+            # registered last and signing every request, onto the CPU
+            default_max = max(8, (2 << 30) // (self._rows_per_key * self.row * 4))
         self._index: Dict[bytes, int] = {}
         self._invalid_cache: set = set()
         self._max_keys = default_max if max_keys is None else max_keys
@@ -221,7 +217,7 @@ class KeyBank:
         index: Dict[bytes, int],
         device="cuda",
         max_keys: Optional[int] = None,
-        mode: str = "fused",
+        mode: str = "comb",
         window: int = WINDOW_BITS,
     ) -> "KeyBank":
         """A bank holding `rows` ((cap, rows_per_key, ROW) int32 tables of

@@ -12,14 +12,16 @@ host with several cards the same code takes ``cuda:0`` to ``cuda:3``.
 
 Partition specs are JAX's (`P`): the dimension whose entry names the
 mesh axis is split evenly over the positions, and ``P()`` replicates, one
-copy for each distinct device. `psum` is the collective's stand-in: the
-positions' tensors are copied to the first device, added there, and the
-sum is copied back to every distinct device.
+copy for each distinct device. `psum` is the collective's stand-in over
+one partial sum a distinct device (the positions that share a device have
+already added into one tensor there): the partials are copied to the
+first device, added there, and the sum is copied back to every distinct
+device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -110,15 +112,21 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs: Sequence[PartitionSpec]) -> Ca
     return run
 
 
-def psum(values: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
-    """The positions' tensors summed, the sum on every position's device:
-    copies to the first device, k − 1 adds there, and one copy back to each
-    other distinct device."""
-    first = mesh.devices[0]
-    total = values[0].to(first)
-    for v in values[1:]:
-        total = total + v.to(first)
-    copies = {d: total if d == first else total.to(d) for d in mesh.distinct()}
+def psum(partials: Mapping[torch.device, torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
+    """One partial sum a distinct device of the mesh, summed -> the sum on
+    every position's device: over d distinct devices, d − 1 copies to the
+    first device, d − 1 adds there, and one copy back to each other
+    distinct device. On a mesh of one device it is the partial itself, with
+    no copy and no add."""
+    distinct = mesh.distinct()
+    if set(partials) != set(distinct):
+        raise ValueError(f"one partial a distinct device of the mesh {distinct}, got "
+                         f"{list(partials)}")
+    first = distinct[0]
+    total = partials[first]
+    for d in distinct[1:]:
+        total = total + partials[d].to(first)
+    copies = {d: total if d == first else total.to(d) for d in distinct}
     return [copies[d] for d in mesh.devices]
 
 

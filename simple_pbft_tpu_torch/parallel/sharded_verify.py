@@ -9,8 +9,11 @@ the same names and signatures apart from taking the port's `Mesh`
      kernel in comb mode and the verdict kernel's limb entry; or the
      ladder kernel K9), and
   2. tallies each shard's valid votes per consensus instance (the tally
-     kernel, csrc/quorum_tally.cu) and sums the tallies over the mesh
-     (`psum`), so every device holds the quorum counts.
+     kernel, csrc/quorum_tally.cu), every shard adding into one zeroed
+     counts vector of its device, and sums those vectors over the mesh's
+     distinct devices (`psum`), so every device holds the quorum counts.
+     k shards on one card are one zeroing and k tally launches, with no
+     add between them.
 
 What a step returns follows JAX's ``out_specs=(vec, repl)``: the verdicts
 stay one (B/k,) bool tensor a shard, on that shard's device, and the
@@ -102,11 +105,19 @@ def instrument_step(step, mesh: Mesh, mode: str = "ladder",
 
 def _quorum(mesh: Mesh, local):
     """The step around `local` (run on each position's shards, returning
-    its verdict and its tally): -> (verdict shards, counts replicated)."""
+    its verdict and its one-hot shard): one zeroed (n_inst,) int32 counts
+    vector a distinct device, each shard's tally added into its device's
+    vector, then `psum` over the distinct devices -> (verdict shards,
+    counts replicated)."""
 
     def step(*args):
         outs = local(*args)
-        return [v for v, _ in outs], psum([c for _, c in outs], mesh)
+        n_inst = outs[0][1].shape[1]
+        counts = {d: torch.zeros((n_inst,), dtype=torch.int32, device=d)
+                  for d in mesh.distinct()}
+        for d, (verdict, onehot) in zip(mesh.devices, outs):
+            quorum_tally(onehot, verdict, out=counts[d])
+        return [v for v, _ in outs], psum(counts, mesh)
 
     return step
 
@@ -134,7 +145,7 @@ def make_comb_quorum_step(mesh: Mesh, axis: str = "dp"):
         verdict = comb.comb_verify_kernel(
             s_nib, k_nib, a_idx, a_table, b_table, r_y, r_sign, precheck
         )
-        return verdict, quorum_tally(onehot, verdict)
+        return verdict, onehot
 
     # pbftlint: disable=PBL006 -- parallel/mesh.shard_map is a torch helper that splits arguments over a Mesh of torch devices and calls the function on each shard; it builds no jit program, so there is no unwarmed dispatch surface to guard
     return _quorum(mesh, shard_map(
@@ -158,7 +169,7 @@ def make_quorum_step(mesh: Mesh, axis: str = "dp"):
 
     def _local(a_y, a_sign, r_y, r_sign, s_bits, k_bits, precheck, inst_onehot):
         verdict = verify_kernel(a_y, a_sign, r_y, r_sign, s_bits, k_bits, precheck)
-        return verdict, quorum_tally(inst_onehot, verdict)
+        return verdict, inst_onehot
 
     # pbftlint: disable=PBL006 -- parallel/mesh.shard_map is a torch helper that splits arguments over a Mesh of torch devices and calls the function on each shard; it builds no jit program, so there is no unwarmed dispatch surface to guard
     return _quorum(mesh, shard_map(

@@ -25,10 +25,13 @@ a card and no JAX it runs on its own:
   sides of its group, warp and block edges; its point operations (the
   doubling, the cached addition and the decompression, 5 threads a
   point) equal ops/edwards.py;
-- the quorum tally kernel equals `quorum_tally_plain` on one-hot rows
-  with padding and on random int32 weights, at B = 1 to 8,193 and up to
-  1,000 instances; both quorum steps on Mesh(["cuda:0"] * 4) equal the
-  same steps on Mesh(["cpu"] * 4), with four launches of each kernel;
+- the quorum tally kernel, added into a nonzero `out` and into a fresh
+  one, equals `quorum_tally_plain` on one-hot rows with padding and on
+  random int32 weights that wrap, at B = 1 to 8,193 and up to 1,000
+  instances, on its 16-byte path (n_inst % 4 == 0, aligned base) and its
+  scalar path (any n_inst, or a base 4 bytes off); both quorum steps on
+  Mesh(["cuda:0"] * 4) equal the same steps on Mesh(["cpu"] * 4), with
+  four launches of each kernel;
 - the replica-unit bench with the gpu verifier makes device passes of
   both kernels in plain and qc mode.
 """
@@ -359,33 +362,50 @@ def test_coop_point_ops_equal_plain(op, batch):
     assert torch.equal(got.reshape(4, fe.NLIMB, batch), _canonical(want))
 
 
-# the tally's shapes: a partial warp of rows and columns, one column block,
-# the mesh shards' and the whole batch's, a partial row block, and 1,000
-# instances (32 column blocks, the last partial)
-TALLY_SHAPES = [(1, 1), (7, 2), (8, 128), (512, 128), (8192, 128), (8193, 1000)]
+# the tally's shapes: B from one row to a partial warp's ballot, a partial
+# row block, the mesh shards' and the whole batch's and one row past it;
+# n_inst from one column to the 16-byte path's (4, 128) and past a column
+# block (130, 1,000: the scalar path's 5 and 32 column blocks)
+TALLY_BATCHES = [1, 7, 8, 33, 512, 8192, 8193]
+TALLY_INSTANCES = [1, 3, 4, 128, 130, 1000]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,n_inst", TALLY_SHAPES)
-def test_quorum_tally_kernel_equals_plain(batch, n_inst):
+@pytest.mark.parametrize("base", ["aligned", "offset"])
+@pytest.mark.parametrize("n_inst", TALLY_INSTANCES)
+@pytest.mark.parametrize("batch", TALLY_BATCHES)
+def test_quorum_tally_kernel_equals_plain(batch, n_inst, base):
     """The tally kernel against quorum_tally_plain, exactly: one-hot rows
-    with all-zero padding rows; then random int32 weights, whose sums wrap
-    modulo 2^32 as JAX's int32 sum does. One counted launch a call."""
+    with all-zero padding rows, then random int32 weights whose sums wrap
+    modulo 2^32 as JAX's int32 sum does; each added into a nonzero `out`
+    and into a fresh zeroed vector. An aligned base with n_inst % 4 == 0
+    takes the 16-byte loads; a base 4 bytes off, or another n_inst, the
+    scalar path. One counted launch a call."""
     from simple_pbft_tpu_torch.ops import quorum
 
     dev = _need_card()
-    rng = np.random.default_rng(batch + n_inst)
+    rng = np.random.default_rng(batch * 10 + n_inst)
     onehot = np.eye(n_inst, dtype=np.int32)[rng.integers(0, n_inst, batch)]
     onehot[::5] = 0
     weights = rng.integers(-2**31, 2**31, (batch, n_inst), dtype=np.int64).astype(np.int32)
     verdict = torch.from_numpy(rng.random(batch) < 0.8).to(dev)
+    start = rng.integers(-2**31, 2**31, n_inst, dtype=np.int64).astype(np.int32)
     for rows in (onehot, weights):
-        t = torch.from_numpy(rows).to(dev)
+        skip = 0 if base == "aligned" else 1
+        buf = torch.empty(batch * n_inst + skip, dtype=torch.int32, device=dev)
+        t = buf[skip:].view(batch, n_inst)
+        t.copy_(torch.from_numpy(rows))
+        assert quorum.vector_path(t) == (base == "aligned" and n_inst % 4 == 0)
+        want = quorum.quorum_tally_plain(t, verdict)
+        out = torch.from_numpy(start).to(dev)
         before = quorum.tally_kernel.launches_by.get("quorum_tally", 0)
-        got = quorum.tally_kernel(t, verdict)
+        assert quorum.tally_kernel(t, verdict, out=out) is out
+        fresh = quorum.tally_kernel(t, verdict)
         torch.cuda.synchronize()
-        assert quorum.tally_kernel.launches_by["quorum_tally"] == before + 1
-        assert torch.equal(got, quorum.quorum_tally_plain(t, verdict))
+        assert quorum.tally_kernel.launches_by["quorum_tally"] == before + 2
+        assert torch.equal(fresh, want)
+        assert torch.equal(out, (torch.from_numpy(start).long().to(dev) + want.long())
+                           .to(torch.int32))
 
 
 def _vote_items(n: int):

@@ -196,11 +196,13 @@ def test_jax_bank_carries_across_at_window_5(name):
         got = v.verify_batch(items)
         assert len(bank._index) == 3  # nothing rebuilt or added
         with pytest.raises(ValueError):  # the other window's shape
-            gv.KeyBank.from_numpy(jbank._np, jbank._index, device="cpu", window=6)
+            gv.KeyBank.from_numpy(jbank._np, jbank._index, device="cpu", mode="fused",
+                                  window=6)
     assert got == _oracle(items)
     if name == "packed":
         with pytest.raises(ValueError):  # the other layout's width
-            gv.KeyBank.from_numpy(jbank._np, jbank._index, device="cpu", window=5)
+            gv.KeyBank.from_numpy(jbank._np, jbank._index, device="cpu", mode="fused",
+                                  window=5)
 
 
 def test_table_of_the_other_layout_raises():
@@ -244,17 +246,23 @@ def test_ladder_mode_and_bad_configs_raise():
         gv.KeyBank(device="cpu", mode="comb", window=5)
 
 
-def test_budget_is_per_window_and_layout():
-    """A quarter of the device over one key's bytes in this configuration."""
-    import os
+# the JAX bank's caps: about 2 GiB of fused tables, 1,024 comb keys
+CAPS = {("fused", 4, "dense"): 512, ("fused", 5, "dense"): 157, ("fused", 6, "dense"): 47,
+        ("fused", 4, "packed"): 1024, ("fused", 5, "packed"): 315,
+        ("fused", 6, "packed"): 95, ("comb", 4, "dense"): 1024, ("comb", 4, "packed"): 1024}
 
-    host = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    for mode, wbits in CONFIGS:
+
+@pytest.mark.parametrize("name", LAYOUTS)
+@pytest.mark.parametrize("mode,wbits", CONFIGS)
+def test_max_keys_equals_the_jax_banks(mode, wbits, name):
+    """The bank's default cap is the JAX bank's in every mode, window and
+    row layout, under each package's row-packing switch, and does not
+    depend on the device's memory."""
+    with layout(name):
         bank = gv.KeyBank(initial_capacity=1, device="cpu", mode=mode, window=wbits)
-        assert bank._max_keys == max(8, host // 4 // (bank._rows_per_key * 64 * 4))
-    with layout("packed"):
-        bank = gv.KeyBank(initial_capacity=1, device="cpu", window=6)
-    assert bank._max_keys == max(8, host // 4 // (43 * 4096 * 32 * 4))
+        jbank = jtv.KeyBank(initial_capacity=1, mode=mode, window=wbits)
+        assert bank._rows_per_key == jbank._rows_per_key and bank.row == comb.ROW
+        assert bank._max_keys == jbank._max_keys == CAPS[mode, wbits, name]
 
 
 # -- the plain accumulators against JAX's -------------------------------------

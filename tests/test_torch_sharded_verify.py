@@ -65,7 +65,7 @@ def _onehot(batch: int, n_inst: int, rng, pad_every: int = 0) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n_inst", [1, 2, 128])
+@pytest.mark.parametrize("n_inst", [1, 2, 3, 5, 128])
 @pytest.mark.parametrize("batch", [8, 32])
 def test_quorum_tally_plain_equals_the_jax_expression(batch, n_inst):
     rng = np.random.default_rng(batch * 1000 + n_inst)
@@ -78,6 +78,47 @@ def test_quorum_tally_plain_equals_the_jax_expression(batch, n_inst):
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(quorum_tally_plain(torch.from_numpy(onehot),
                                              torch.from_numpy(verdict)).numpy(), want)
+
+
+def _jax_tally(onehot: np.ndarray, verdict: np.ndarray) -> jnp.ndarray:
+    return jnp.sum(jnp.asarray(onehot) * jnp.asarray(verdict)[:, None].astype(jnp.int32),
+                   axis=0)
+
+
+@pytest.mark.parametrize("wrap", [False, True], ids=["small", "wraps"])
+@pytest.mark.parametrize("n_inst", [3, 5, 128])
+@pytest.mark.parametrize("batch", [8, 32])
+def test_quorum_tally_out_adds_as_the_jax_sum_of_two_tallies(batch, n_inst, wrap):
+    """Two tallies added into one `out` equal JAX's two int32 sums added,
+    bit for bit; with every entry a weight near 2^30 the counts wrap past
+    2^31 (and past 2^32) as JAX's do."""
+    rng = np.random.default_rng(batch * 7 + n_inst + 1000 * wrap)
+    shards = []
+    for _ in range(2):
+        onehot = _onehot(batch, n_inst, rng, pad_every=5)
+        if wrap:
+            onehot = rng.integers(1 << 29, 1 << 30, (batch, n_inst), dtype=np.int32)
+            onehot[::5] = 0
+        shards.append((onehot, rng.random(batch) < 0.8))
+    want = np.asarray(_jax_tally(*shards[0]) + _jax_tally(*shards[1]))
+    out = torch.zeros(n_inst, dtype=torch.int32)
+    for onehot, verdict in shards:
+        got = quorum_tally(torch.from_numpy(onehot), torch.from_numpy(verdict), out=out)
+        assert got is out
+    assert out.dtype == torch.int32 and np.array_equal(out.numpy(), want)
+    wide = sum((o.astype(np.int64) * v[:, None]).sum(0) for o, v in shards)
+    assert (wide > np.iinfo(np.int32).max).any() == wrap
+
+
+def test_quorum_tally_checks_out():
+    onehot = torch.eye(3, dtype=torch.int32)
+    verdict = torch.ones(3, dtype=torch.bool)
+    with pytest.raises(TypeError):
+        quorum_tally(onehot, verdict, out=torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        quorum_tally(onehot, verdict, out=torch.zeros(4, dtype=torch.int32))
+    out = torch.full((3,), 5, dtype=torch.int32)
+    assert quorum_tally(onehot, verdict, out=out).tolist() == [6, 6, 6]
 
 
 def test_quorum_tally_on_cpu_runs_the_plain_version_and_the_kernel_refuses_it():
@@ -114,8 +155,14 @@ def test_mesh_splits_by_the_jax_partition_specs():
         shard(np.zeros(6), P("dp"), mesh)
     with pytest.raises(ValueError, match="mesh axis"):
         shard(vec, P("mp"), mesh)
-    summed = psum([torch.tensor([i, 1], dtype=torch.int32) for i in range(4)], mesh)
-    assert [s.tolist() for s in summed] == [[6, 4]] * 4
+    one = torch.tensor([6, 4], dtype=torch.int32)
+    summed = psum({torch.device("cpu"): one}, mesh)
+    assert len(summed) == 4 and all(s is one for s in summed)  # one device: no add
+    two = Mesh(["cpu", "cpu:0"] * 2)
+    summed = psum({torch.device("cpu"): one, torch.device("cpu:0"): one + 1}, two)
+    assert [s.tolist() for s in summed] == [[13, 9]] * 4
+    with pytest.raises(ValueError, match="one partial a distinct device"):
+        psum({torch.device("cpu"): one}, two)
     out = shard_map(lambda a, b: a + b, mesh, (P("dp"), P()))(vec, torch.tensor(10))
     assert np.array_equal(gather(out), vec + 10)
 
@@ -236,6 +283,32 @@ def test_comb_quorum_step_on_meshes_of_1_and_2(jax_ref):
         verdict, counts = make_comb_quorum_step(Mesh(["cpu"] * k))(*args)
         assert np.array_equal(gather(verdict), want_verdict)
         assert [c.tolist() for c in counts] == [want_counts.tolist()] * k
+
+
+@pytest.mark.parametrize("kind", ["comb", "ladder"])
+def test_quorum_step_adds_a_devices_shards_into_one_vector(jax_ref, kind, monkeypatch):
+    """On a mesh of 4 positions over 2 distinct devices the step zeroes
+    one counts vector a device, each shard's tally adds into its device's
+    vector, and psum adds the two: the counts equal JAX's on every
+    position."""
+    from simple_pbft_tpu_torch.parallel import sharded_verify
+
+    args, (want_verdict, want_counts) = jax_ref[kind]
+    outs = []
+
+    def tally(onehot, verdict, out=None):
+        outs.append(out)
+        return quorum_tally(onehot, verdict, out=out)
+
+    monkeypatch.setattr(sharded_verify, "quorum_tally", tally)
+    mesh = Mesh(["cpu", "cpu:0"] * 2)
+    make = make_comb_quorum_step if kind == "comb" else make_quorum_step
+    verdict, counts = make(mesh)(*args)
+    assert len(outs) == 4 and outs[0] is outs[2] and outs[1] is outs[3]
+    assert outs[0] is not outs[1]
+    assert np.array_equal(gather(verdict), want_verdict)
+    assert [c.tolist() for c in counts] == [want_counts.tolist()] * 4
+    assert counts[0] is counts[2] and counts[1] is counts[3]
 
 
 def test_quorum_step_rejects_a_batch_that_does_not_divide(jax_ref):

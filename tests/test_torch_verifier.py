@@ -20,6 +20,7 @@ from simple_pbft_tpu_torch.crypto.verifier import (
     NativeEdVerifier,
     kernel_equivalent_cpu_verifier,
 )
+from simple_pbft_tpu_torch.ops import comb
 
 # RFC 8032 §7.1 test vectors 1-3 (pubkey, msg, sig)
 RFC8032_VECTORS = [
@@ -140,7 +141,7 @@ def test_initial_keys_pins_table_shape_and_warm_is_inert():
 
 def test_keybank_cap_falls_back_to_cpu():
     v = GpuVerifier(device="cpu")
-    v._bank = KeyBank(initial_capacity=2, max_keys=2, device="cpu")
+    v._bank = KeyBank(initial_capacity=2, max_keys=2, device="cpu", mode="fused")
     items = [_signed(i, b"cap %d" % i) for i in range(4)]  # 4 distinct keys
     bad = bytearray(items[3].sig)
     bad[2] ^= 4
@@ -157,7 +158,7 @@ def test_overbank_fallback_agrees_with_kernel(tpu):
     kernel = GpuVerifier(device="cpu").verify_batch(edge_items)
     assert kernel == oracle == tpu.verify_batch(edge_items)
     v = GpuVerifier(device="cpu")
-    v._bank = KeyBank(initial_capacity=1, max_keys=1, device="cpu")
+    v._bank = KeyBank(initial_capacity=1, max_keys=1, device="cpu", mode="fused")
     assert v.verify_batch([_signed(99, b"occupier")]) == [True]
     got = v.verify_batch(edge_items)
     assert got == kernel
@@ -173,10 +174,10 @@ def test_keybank_from_numpy_verifies_like_jax_bank(tpu):
     jbank = jtv.KeyBank(initial_capacity=8, mode="fused", window=4)
     for it in items[:5]:
         jbank.lookup(it.pubkey)
-    bank = KeyBank.from_numpy(jbank._np, jbank._index, device="cpu")
+    bank = KeyBank.from_numpy(jbank._np, jbank._index, device="cpu", mode="fused")
     assert bank._cap == 8 and bank._index == jbank._index
     for pk, row in jbank._index.items():
-        fresh = KeyBank(device="cpu")
+        fresh = KeyBank(device="cpu", mode="fused")
         fresh.lookup(pk)
         np.testing.assert_array_equal(bank._np[row], fresh._np[0])
     v = GpuVerifier(device="cpu")
@@ -190,19 +191,44 @@ def test_keybank_from_numpy_verifies_like_jax_bank(tpu):
 def test_keybank_from_numpy_rejects_bad_input():
     rows = np.zeros((2, 64 * 256, 64), np.int32)
     with pytest.raises(ValueError):
-        KeyBank.from_numpy(rows[:, :10], {}, device="cpu")
+        KeyBank.from_numpy(rows[:, :10], {}, device="cpu", mode="fused")
     with pytest.raises(ValueError):
-        KeyBank.from_numpy(rows, {b"a" * 32: 1}, device="cpu")  # row 0 unused
+        KeyBank.from_numpy(rows, {b"a" * 32: 1}, device="cpu", mode="fused")  # row 0 unused
     with pytest.raises(ValueError):
-        KeyBank.from_numpy(rows.astype(np.int64), {}, device="cpu")
+        KeyBank.from_numpy(rows.astype(np.int64), {}, device="cpu", mode="fused")
 
 
-def test_max_keys_is_a_quarter_of_device_memory():
-    import os
+def test_default_bank_has_the_jax_banks_mode_and_cap():
+    """KeyBank() is a comb bank of 1,024 keys in both packages, whatever
+    the device's memory; a fused bank's cap is the JAX bank's too."""
+    bank, jbank = KeyBank(device="cpu"), jtv.KeyBank()
+    assert bank._rows_per_key == jbank._rows_per_key == 64 * 16
+    assert bank._max_keys == jbank._max_keys == 1024
+    assert bank._np.shape == jbank._np.shape
+    fused = KeyBank(device="cpu", mode="fused")
+    assert fused._max_keys == jtv.KeyBank(mode="fused")._max_keys == 512
+    capped = KeyBank(initial_capacity=64, max_keys=5, device="cpu")
+    assert (capped._max_keys, capped._cap) == (5, 5)  # explicit cap, clamped capacity
 
-    bank = KeyBank(device="cpu")
-    host = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    assert bank._max_keys == max(8, host // 4 // (64 * 256 * 64 * 4))
+
+def test_default_bank_and_from_numpy_build_comb_tables():
+    """A default bank's rows are comb tables equal to a default JAX
+    bank's, and from_numpy takes a default JAX bank's rows as they are
+    and refuses fused rows unless told the mode."""
+    pks = [ref.public_key(bytes([i]) * 32) for i in (3, 4)]
+    bank, jbank = KeyBank(device="cpu"), jtv.KeyBank()
+    for pk in pks:
+        assert bank.lookup(pk) == jbank.lookup(pk)
+    np.testing.assert_array_equal(bank._np, jbank._np)
+    np.testing.assert_array_equal(bank._np[1], comb.comb_table_np(ref.point_decompress(pks[1])))
+    carried = KeyBank.from_numpy(jbank._np, jbank._index, device="cpu")
+    assert carried._rows_per_key == jbank._rows_per_key and carried._max_keys == 1024
+    fused = jtv.KeyBank(initial_capacity=2, mode="fused")
+    fused.lookup(pks[0])
+    with pytest.raises(ValueError):
+        KeyBank.from_numpy(fused._np, fused._index, device="cpu")
+    assert KeyBank.from_numpy(fused._np, fused._index, device="cpu",
+                              mode="fused")._index == fused._index
 
 
 def test_cuda_default_raises_without_a_card():
