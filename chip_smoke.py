@@ -89,9 +89,13 @@ the sources in the repository, then, printing one JSON line per phase:
               from a 256-slot bank's table, in dense (256 B) and packed
               (128 B) rows, as 4-, 8- and 16-byte elements, the median
               of 20 calls by CUDA events; the
-              port's crypto/costmodel.shape_cost("fused", 4, 8192); and
-              the verifier phase's K1 time as an achieved gather rate
-              against the cost model's "h100" ceiling;
+              port's crypto/costmodel.shape_cost("fused", 4, 8192); the
+              verifier phase's K1 time as an achieved gather rate
+              against the cost model's "h100" ceiling; and K1 on cold
+              rows: 8,192 distinct signed messages on the verifier's
+              128-key bank (bitmap all true, K1 equal to its plain
+              version), its one-call and back-to-back times beside the
+              tiled batch's and the distinct rows each gathers;
 8. committee (the main path) — an n=16 (f=5) LocalCommittee whose
               replicas share one VerifyService over one GpuVerifier, with
               the CPU routes turned off; 16 clients x 25 puts; every reply
@@ -132,8 +136,28 @@ the sources in the repository, then, printing one JSON line per phase:
               256 replicas (f = 85) and 8 clients in one process with BLS
               quorum certificates, 264 keys in a fused w=4 bank of 512
               slots, the reference's cap. It must commit with no key over
-              the cap and the same checks as 9c. 9b, 9c and 9d print the
-              card memory their process used;
+              the cap and the same checks as 9c;
+9e. config5 (a main path) — python -m
+              simple_pbft_tpu_torch.bench_consensus --configs 3 --storm
+              --verifier gpu --verify-cpu-cutoff 0 --crashes 3: BASELINE
+              config 5, the committee of 64 with the bench's 8 clients x 128
+              in flight, whose current primary is crash-stopped three times;
+              every VIEW-CHANGE's and NEW-VIEW's nested signatures verify on
+              the card. storm_checks: three crashes, the survivors' last
+              flight frames in one view of at least 3, views installed and
+              three NEW-VIEWs sent, no honest certificate refused by a
+              precheck, every survivor executing after its first frame in the
+              final view, device passes only (no reroute, no watchdog
+              failover, no first-time shape), no key over the cap, and one
+              launch of K1 and of the verdict kernel a chunk and none of K9.
+              It prints the largest dispatch and the dispatches split into
+              chunks of the top bucket;
+9f. n100 (a main path) — python -m simple_pbft_tpu_torch.bench_consensus
+              --configs 100,qc100 --verifier gpu --verify-cpu-cutoff 0: the
+              committee of 100 (BASELINE's metric) without and with BLS
+              certificates, each committing with the device checks of 9e and
+              the bank's cap of 512. 9b to 9f print the card memory their
+              process used;
 10. bench     — python -m simple_pbft_tpu_torch.bench at its defaults
               (fused, w = 5, dense rows), at BENCH_WINDOW=4 and at
               BENCH_MODE=comb (no error, on the card, each line carrying
@@ -141,7 +165,7 @@ the sources in the repository, then, printing one JSON line per phase:
               simple_pbft_tpu_torch.bench_consensus --configs 2 --verifier
               gpu --seconds 10 (commits, device passes);
 11. the kernels line (launches of the committee, the deployment, the
-   replica unit, configs 3 and 4, the modes phase's verifier drives and the
+   replica unit, configs 3, 4 and 5, n = 100, the modes phase's verifier drives and the
    mesh phase's drives; each kernel's `configs` map; K9's launches are
    the ladder drive's), and last the device line.
 
@@ -209,8 +233,12 @@ LADDER_DESIGN_MULS_PER_LANE = 256 * 15 + 2 * 274 + 1 + 11 + 2
 LADDER_BYTES_PER_LANE = 2 * 17 * 4 + 2 * 4 + 2 * 256 * 4 + 1 + 1
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the smoke started."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - _T0, **kw}), flush=True)
 
 
 def check(cond, what):
@@ -1417,7 +1445,8 @@ def phase_verifier():
     # the rows of this batch (1,024 messages tiled 8 times) that K1 reads
     # more than once come from the L2 cache, not from device memory
     distinct = torch.unique(comb.wire_index_plain(wire, a_idx)).numel()
-    return {"batch": len(items), "accumulate_ms": split[0], "distinct_rows": distinct}
+    return {"batch": len(items), "accumulate_ms": split[0], "distinct_rows": distinct,
+            "bank": gpu._bank, "wire": wire, "a_idx": a_idx}
 
 
 # the gather probe: the rows one fused w=4 pass reads at B = 8192 (64 a
@@ -1465,11 +1494,74 @@ def gather_probe(row_words, seed):
             "ms": views[best]["ms"], "gbps": views[best]["gbps"]}
 
 
+def _sign_all(jobs):
+    """Ed25519 signatures of (seed, msg) pairs: OpenSSL where the
+    `cryptography` wheel is installed, else the RFC 8032 reference on one
+    process a core (the pool is gone when this returns)."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    from simple_pbft_tpu_torch.crypto import ed25519_cpu as ref
+    from simple_pbft_tpu_torch.crypto import signer
+
+    if signer._HAVE_OPENSSL:
+        return [signer.Signer("", seed).sign(msg) for seed, msg in jobs]
+    with ProcessPoolExecutor(os.cpu_count()) as pool:
+        return list(pool.map(ref.sign, *zip(*jobs), chunksize=256))
+
+
+def cold_rows(verifier):
+    """K1 on cold rows: 8,192 distinct messages signed by BASELINE config
+    3's 128 signers in turn, staged against the verifier phase's bank.
+    The pass's bitmap must be all true and K1 must equal its plain version
+    in canonical limbs. K1's one-call and back-to-back times on it and on
+    the verifier phase's tiled batch (1,024 messages 8 times), in the same
+    call, and the distinct rows each gathers."""
+    import torch
+
+    from simple_pbft_tpu_torch.config import make_test_committee
+    from simple_pbft_tpu_torch.crypto.gpu_verifier import prepare_wire_batch
+    from simple_pbft_tpu_torch.crypto.verifier import BatchItem
+    from simple_pbft_tpu_torch.ops import comb
+
+    _, keys = make_test_committee(n=64, clients=64)
+    signers = [(kp.pub, kp.seed) for _, kp in sorted(keys.items())]
+    jobs = [(signers[i % len(signers)][1], b"chip smoke cold %d" % i)
+            for i in range(verifier["batch"])]
+    t0 = time.perf_counter()
+    sigs = _sign_all(jobs)
+    sign_s = time.perf_counter() - t0
+    items = [BatchItem(signers[i % len(signers)][0], msg, sig)
+             for i, ((_, msg), sig) in enumerate(zip(jobs, sigs))]
+    bank = verifier["bank"]
+    prep, fallback = prepare_wire_batch(items, bank)
+    check(not fallback and len(bank._index) == 128, "the cold batch left the bank")
+    dev = bank.device_tables().device
+    wire, a_idx, pre = (torch.from_numpy(a).to(dev) for a in prep.arrays())
+    tables = bank.device_tables()
+    ok = comb.fused_verify_wire_kernel(wire, a_idx, tables, pre)
+    check(bool(ok.all()), f"the cold batch's pass rejected {int((~ok).sum())} honest items")
+    k1 = comb.accumulate_kernel
+    widx = comb.wire_index_plain(wire, a_idx)
+    got = k1.wire(wire, a_idx, tables)
+    want = canonical_point(comb.madd_loop_plain(widx, tables, parts=k1.parts_for(len(items), dev)))
+    err = int((canonical_point(got.reshape(4, 17, len(items))).long() - want.long()).abs().max())
+    check(err == 0, "K1 != plain on the cold batch")
+    out = {"sign_s": sign_s, "max_abs_err": err}
+    for name, (w, a) in (("cold", (wire, a_idx)), ("tiled", (verifier["wire"], verifier["a_idx"]))):
+        rows = torch.unique(comb.wire_index_plain(w, a)).numel()
+        one = cuda_ms(lambda: k1.wire(w, a, tables), 20, 3)
+        b2b = cuda_ms(lambda: k1.wire(w, a, tables), 5, 3, BACK_TO_BACK)
+        out[name] = {"distinct_rows": rows, "ms": one, "back_to_back_ms": b2b,
+                     "distinct_gbps": rows * comb.ROW * 4 / b2b / 1e6}
+    return out
+
+
 def phase_costmodel(verifier):
     """The cost model's roofline join: the card's gather rate (dense and
     packed rows), the model's fused w=4 shape at B = 8192, and the
     verifier phase's K1 time as an achieved gather rate against the
-    model's `h100` ceiling."""
+    model's `h100` ceiling; then K1 on cold rows (cold_rows) against the
+    same ceiling."""
     from simple_pbft_tpu_torch.crypto import costmodel
     from simple_pbft_tpu_torch.ops import comb
 
@@ -1483,11 +1575,15 @@ def phase_costmodel(verifier):
     k1_ms = verifier["accumulate_ms"]
     achieved = cost["gather_bytes_per_pass"] / k1_ms / 1e6
     distinct = verifier["distinct_rows"] * cost["row_bytes"] / k1_ms / 1e6
+    cold = cold_rows(verifier)
+    for name in ("cold", "tiled"):
+        cold[name]["distinct_share_of_peak"] = cold[name]["distinct_gbps"] / peak
     emit("costmodel", gather_dense=dense, gather_packed=packed, shape_cost=cost,
          k1_ms=k1_ms, k1_gather_gbps=achieved, peak_gather_gbps=peak,
          k1_share_of_peak=achieved / peak, k1_share_of_this_probe=achieved / dense["gbps"],
          k1_distinct_rows=verifier["distinct_rows"], k1_distinct_gather_gbps=distinct,
-         k1_distinct_share_of_peak=distinct / peak)
+         k1_distinct_share_of_peak=distinct / peak, k1_cold_rows=cold)
+    return cold
 
 
 def profile_pass(prep, tables):
@@ -2027,6 +2123,176 @@ def phase_config4():
     return {k: launches[k] for k in ("fused_accumulate", "encode_verdict")}
 
 
+def _device_only(rec, what):
+    """A gpu record's device checks: device passes only, none rerouted, no
+    watchdog failover, no first-time shape after the warm, every key in
+    the bank, and each chunk one launch of K1 and of the verdict kernel
+    and none of K9 (chunks and launches read together under the device
+    lock). -> the launches."""
+    tally = rec["launch_tally"]
+    launches = tally["launches"]
+    check(rec["svc_device_passes"] > 0 and rec["svc_cpu_passes"] == 0
+          and rec["svc_cpu_reroute_passes"] == 0,
+          f"{what}: {rec['svc_device_passes']} device passes, {rec['svc_cpu_passes']} CPU, "
+          f"{rec['svc_cpu_reroute_passes']} rerouted")
+    check(rec["svc_watchdog_failovers"] == 0
+          and rec["svc_device_shapes"]["post_warm_compiles"] == 0,
+          f"{what} left the device or met a first-time shape: {rec['svc_device_shapes']}")
+    check(rec["keys_over_cap"] == 0, f"{what}: {rec['keys_over_cap']} keys over the bank's cap")
+    check(tally["chunks"] > 0 and launches["fused_accumulate"] == tally["chunks"]
+          and launches["encode_verdict"] == tally["chunks"] and launches["ladder_verify"] == 0,
+          f"{what}: {tally['chunks']} chunks, launches {launches}")
+    return launches
+
+
+def storm_checks(rec, flight_dir, n, crashes, device=True):
+    """BASELINE config 5's checks on one storm record of bench_consensus
+    and the flight frames its run wrote under `flight_dir`: the record's
+    shape; the surviving replicas' last frames in one view, at least
+    `crashes`; views installed, one NEW-VIEW sent a crash at least, no
+    certificate of the honest committee rejected by a precheck; every
+    survivor's executed sequence rising after its first frame in the
+    final view; and with `device`, the gpu record's device checks. The
+    crashed replicas' old views stand in the record's end telemetry, so
+    the views are read from the frames. -> a summary, which every failed
+    check's message carries."""
+    check(rec["config"] == f"viewchange-storm-pbft-n{n}" and rec["n"] == n
+          and rec.get("primary_crashes") == crashes,
+          f"storm ran another shape: {rec['config']}, n {rec['n']}, "
+          f"crashes {rec.get('primary_crashes')}")
+    frames = {}
+    for path in sorted(glob.glob(os.path.join(flight_dir, "*.flight.jsonl"))):
+        with open(path) as fh:
+            docs = [json.loads(line) for line in fh if line.strip()]
+        # a stall's autopsy lands in the same file: keep the frames, each
+        # as its replica block with the frame's uptime
+        frames[os.path.basename(path).split(".")[0]] = [
+            {**d["replica"], "t": d["uptime_s"]} for d in docs if "replica" in d]
+    check(len(frames) == n and all(frames.values()),
+          f"{len(frames)} replicas' flight frames, not {n}")
+    survivors = {rid: fr for rid, fr in frames.items() if fr[-1]["running"]}
+    # the failovers' timeline in seconds since the replicas started: when
+    # each crashed replica's frames first show it stopped, and the first
+    # and last survivor's first frame in each view it installed
+    installs = {}
+    for fr in survivors.values():
+        for v in sorted({f["view"] for f in fr} - {0}):
+            installs.setdefault(v, []).append(next(f["t"] for f in fr if f["view"] == v))
+    ends = {}
+    for rid, fr in survivors.items():
+        ends.setdefault(fr[-1]["view"], []).append(rid)
+    metrics = rec["telemetry"]["end"]["replica_metrics"]
+    counts = {k: metrics.get(k, 0) for k in ("views_installed", "new_views_sent",
+                                             "bad_newview_precheck", "bad_viewchange_precheck")}
+    summary = {"survivors": len(survivors),
+               "crash_s": sorted(next(f["t"] for f in fr if not f["running"])
+                                 for rid, fr in frames.items() if rid not in survivors),
+               "install_s": {str(v): [min(ts), max(ts), len(ts)]
+                             for v, ts in sorted(installs.items())},
+               "end_views": {str(v): len(rids) for v, rids in sorted(ends.items())},
+               "end_s": max(fr[-1]["t"] for fr in frames.values()), **counts}
+    check(len(survivors) == n - crashes,
+          f"{len(survivors)} survivors of {n} after {crashes} crashes: {summary}")
+    check(len(ends) == 1 and min(ends) >= crashes,
+          f"the survivors end in views {sorted(ends)}: {summary}")
+    final = min(ends)
+    rises = {}
+    for rid, fr in survivors.items():
+        first = next(f for f in fr if f["view"] == final)
+        rises[rid] = fr[-1]["executed_seq"] - first["executed_seq"]
+    summary.update(final_view=final,
+                   exec_rise_after_final_view=[min(rises.values()), max(rises.values())])
+    stalled = sorted(rid for rid, d in rises.items() if d <= 0)
+    check(not stalled, f"no commit in view {final} after its first frame at {stalled}: {summary}")
+    check(counts["views_installed"] > 0 and counts["new_views_sent"] >= crashes,
+          f"failovers not installed: {summary}")
+    check(counts["bad_newview_precheck"] == 0 and counts["bad_viewchange_precheck"] == 0,
+          f"an honest committee's certificate failed its precheck: {summary}")
+    check(rec["max_newview_bytes"] > 0, f"no NEW-VIEW was built: {summary}")
+    if device:
+        summary["launches"] = _device_only(rec, "config 5")
+    return summary
+
+
+# BASELINE config 5 (BASELINE.md:32): 64 replicas (f = 21) in one process,
+# the bench's 8 clients x 128 in flight and blocks of up to 256, three
+# successive crash-stops of the current primary, every verify pile (the
+# certificates' nested signatures too) on the card. The view timer and the
+# window are chosen on the card (PERF.md section 4)
+CONFIG5_T, CONFIG5_S, CONFIG5_CRASHES = 15, 260, 3
+CONFIG5_ARGS = ("--configs", "3", "--storm", "--verifier", "gpu", "--verify-cpu-cutoff", "0",
+                "--crashes", str(CONFIG5_CRASHES), "--clients", "8", "--outstanding", "128",
+                "--batch", "256", "--seconds", str(CONFIG5_S), "--view-timeout", str(CONFIG5_T))
+CONFIG5_KEYS = ("config", "n", "clients", "outstanding", "window_s", "seconds", "committed_req_s",
+                "completed_total", "p50_ms", "p99_ms", "client_timeouts", "replica_exec_min",
+                "replica_exec_max", "primary_crashes", "max_viewchange_bytes", "max_newview_bytes",
+                "verify_calls", "verify_batch_mean", "verify_ms_mean", "svc_device_passes",
+                "svc_device_items", "svc_max_coalesced", "svc_max_pending_seen", "svc_rtt_ms_ema",
+                "launch_tally", "bank_keys", "bank_max_keys", "keys_over_cap", "loop_lag")
+
+
+def phase_config5():
+    """python -m simple_pbft_tpu_torch.bench_consensus --configs 3 --storm
+    --verifier gpu: BASELINE config 5 in one process, its flight frames
+    under a directory removed when the phase returns. The checks are
+    storm_checks'; the line prints the largest dispatch and how many were
+    split into chunks of the top bucket."""
+    from simple_pbft_tpu_torch.crypto.gpu_verifier import BUCKETS
+
+    flight = tempfile.mkdtemp(prefix="chip_smoke_config5_")
+    try:
+        t0 = time.perf_counter()
+        recs, card_used = _run_sampled(["simple_pbft_tpu_torch.bench_consensus", *CONFIG5_ARGS,
+                                        "--flight-dir", flight], "committed_req_s", 900)
+        rec = recs[-1]
+        wall = time.perf_counter() - t0
+        summary = storm_checks(rec, flight, 64, CONFIG5_CRASHES)
+    finally:
+        shutil.rmtree(flight, ignore_errors=True)
+    tally = rec["launch_tally"]
+    emit("config5", args=list(CONFIG5_ARGS), record={k: rec.get(k) for k in CONFIG5_KEYS},
+         storm=summary, largest_dispatch=tally["max_dispatch_items"],
+         chunked_dispatches=tally["chunked_dispatches"],
+         crossed_top_bucket=tally["max_dispatch_items"] > BUCKETS[-1],
+         card_used_bytes=card_used, wall_s=wall, boot_s=wall - rec["seconds"])
+    return {k: summary["launches"][k] for k in ("fused_accumulate", "encode_verdict")}
+
+
+# the n = 100 committee (BASELINE.json's metric, committed req/s at n = 100)
+# in one process: PBFT with Ed25519 votes, then BLS quorum certificates,
+# each with every verify pile on the card
+N100_S = 20
+N100_ARGS = ("--configs", "100,qc100", "--verifier", "gpu", "--verify-cpu-cutoff", "0",
+             "--seconds", str(N100_S))
+N100_KEYS = CONFIG3_KEYS + ("qc_mode", "seconds", "bank_max_keys", "bank_slots", "keys_over_cap",
+                            "launch_tally")
+
+
+def phase_n100():
+    """python -m simple_pbft_tpu_torch.bench_consensus --configs 100,qc100
+    --verifier gpu: the n = 100 committee without and with BLS
+    certificates, one process, two records."""
+    t0 = time.perf_counter()
+    recs, card_used = _run_sampled(["simple_pbft_tpu_torch.bench_consensus", *N100_ARGS],
+                                   "committed_req_s", 900)
+    wall = time.perf_counter() - t0
+    check([(r["config"], r["n"], r["qc_mode"]) for r in recs]
+          == [("pbft-n100", 100, False), ("bls-qc-n100", 100, True)],
+          f"n = 100 ran other shapes: {[(r['config'], r['n']) for r in recs]}")
+    launches = {"fused_accumulate": 0, "encode_verdict": 0}
+    for r in recs:
+        check(r["committed_req_s"] > 0, f"{r['config']} committed nothing")
+        check(r["bank_max_keys"] == 512, f"{r['config']}: bank cap {r['bank_max_keys']}")
+        for k, v in _device_only(r, r["config"]).items():
+            if k in launches:
+                launches[k] += v
+    emit("n100", args=list(N100_ARGS), records={r["config"]: {k: r.get(k) for k in N100_KEYS}
+                                                for r in recs},
+         card_used_bytes=card_used, wall_s=wall,
+         boot_s=wall - sum(r["seconds"] for r in recs), cpu_count=os.cpu_count())
+    return launches
+
+
 # the sim's STORM scenario (tests/test_sim.py), run twice
 SIM_SCENARIO = dict(seed=11, n=4, requests=8, horizon=10.0, probes=2,
                     gen=dict(crashes=1, partition_windows=1, drop_windows=1))
@@ -2112,10 +2378,11 @@ def _accumulate_configs(modes):
     return out
 
 
-def kernel_rows(rows, by_path, modes, mesh):
+def kernel_rows(rows, by_path, modes, mesh, cold):
     """The kernels line: each kernel at the largest bucket, in the mode
     the main path runs it; `launches` sums the paths' counts; `configs`
-    holds every configuration (K1) or entry (the verdict kernel)."""
+    holds every configuration (K1) or entry (the verdict kernel); K1's
+    `cold_rows` its times on distinct and on tiled messages."""
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in ("fused_accumulate", "encode_verdict", "ladder_verify", "quorum_tally")}
     top = max(rows)
@@ -2157,6 +2424,7 @@ def kernel_rows(rows, by_path, modes, mesh):
         "library_ms": None,
         "library": "none: no PyTorch call computes it",
         "configs": configs,
+        "cold_rows": cold,
     }, {
         "name": "encode_verdict",
         "route": "cuda",
@@ -2264,12 +2532,14 @@ def main(argv=None):
     modes = timed("modes", phase_modes)
     mesh = timed("mesh", phase_mesh)
     verifier = timed("verifier", phase_verifier)
-    timed("costmodel", phase_costmodel, verifier)
+    cold = timed("costmodel", phase_costmodel, verifier)
     by_path = {"committee": timed("committee", phase_committee, args.view_timeout)}
     by_path["deployment"] = timed("deployment", phase_deployment)
     by_path["replica_unit"] = timed("replica_unit", phase_replica_unit)
     by_path["config3"] = timed("config3", phase_config3)
     by_path["config4"] = timed("config4", phase_config4)
+    by_path["config5"] = timed("config5", phase_config5)
+    by_path["n100"] = timed("n100", phase_n100)
     by_path["modes"] = _modes_launches(modes)
     for kernel, count in by_path["modes"].items():
         check(count > 0, f"the modes phase's drives never launched {kernel}")
@@ -2278,7 +2548,7 @@ def main(argv=None):
         check(count > 0, f"the mesh phase's drives never launched {kernel}")
     timed("bench", phase_bench)
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=seconds)
-    print(json.dumps({"kernels": kernel_rows(rows, by_path, modes, mesh)}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(rows, by_path, modes, mesh, cold)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -612,6 +612,10 @@ async def run_config(
             # post_warm_compiles == 0 — a nonzero value means the run
             # met a first-time shape mid-window
             svc_device_shapes=shared_verifier.shape_snapshot(),
+            # the chunks dispatched and each kernel's launches, read
+            # together under the device lock, with the largest dispatch
+            # and the dispatches split into chunks of the top bucket
+            launch_tally=shared_verifier.launch_tally(),
             bank_keys=len(shared_verifier._bank._index),
             # the bank's cap, and the committee's and clients' keys that
             # fell over it (each such key's items verify on the CPU)

@@ -32,9 +32,12 @@ view-change storm is a single TPU pass per sweep (BASELINE.md config 5).
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import logging
 import random
+import threading
 import zlib
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 from .. import clock, trace
@@ -284,12 +287,48 @@ def dedup_checkpoint_proofs(
     ]
 
 
+# The port's one edit to this module: validate_new_view is memoised per
+# process. Its result is a pure function of the committee config and the
+# message's content, and every replica of an in-process committee (the
+# benches' and the smoke's) receives the same NEW-VIEW, once from its
+# primary and again from each fetch: at n = 64 the JAX package's function
+# walks the same multi-megabyte certificate for each of them on the one
+# event loop, where here it walks it once. The key is the SHA-256 of the
+# message's signing payload (every field but the signature, cached on the
+# message, which the sweep has already encoded for the envelope's item)
+# and its signature, so a certificate that differs in any field is walked
+# anew; a hit needs the same config object. The cached result is shared,
+# as the JAX package's is within one replica: callers read it.
+_NV_MEMO: "OrderedDict[bytes, Tuple[Any, Any]]" = OrderedDict()
+_NV_MEMO_MAX = 4
+_NV_MEMO_LOCK = threading.Lock()
+
+
 def validate_new_view(
     cfg, msg: NewView
 ) -> Optional[Tuple[Dict[str, ViewChange], List[BatchItem], List[QuorumCert]]]:
     """Structural check of NEW-VIEW: the 2f+1 VC certificate plus the
     re-issued pre-prepares, which must equal the recomputed O-set.
     Returns (vcs, ed25519 items, pending quorum-cert pairing checks)."""
+    key = hashlib.sha256(msg.signing_payload() + msg.sig.encode()).digest()
+    with _NV_MEMO_LOCK:
+        hit = _NV_MEMO.get(key)
+        if hit is not None and hit[0] is cfg:
+            _NV_MEMO.move_to_end(key)
+            return hit[1]
+    res = _validate_new_view(cfg, msg)
+    with _NV_MEMO_LOCK:
+        _NV_MEMO[key] = (cfg, res)
+        _NV_MEMO.move_to_end(key)
+        while len(_NV_MEMO) > _NV_MEMO_MAX:
+            _NV_MEMO.popitem(last=False)
+    return res
+
+
+def _validate_new_view(
+    cfg, msg: NewView
+) -> Optional[Tuple[Dict[str, ViewChange], List[BatchItem], List[QuorumCert]]]:
+    """validate_new_view's walk."""
     if msg.sender != cfg.primary(msg.new_view):
         return None
     if not isinstance(msg.viewchange_proof, list) or len(msg.viewchange_proof) > cfg.n:

@@ -611,6 +611,13 @@ class GpuVerifier:
         self.bucket_hits: Dict[int, int] = {}
         self._warm_done = False
         self._launches_at_warm = _kernel_launches()
+        # chunks dispatched (counted under the device lock, beside their
+        # launches), and after the warm the largest dispatch_batch call
+        # and the calls split into more than one chunk of BUCKETS[-1]
+        self._chunks = 0
+        self._chunks_at_warm = 0
+        self.max_dispatch_items = 0
+        self.chunked_dispatches = 0
 
     @classmethod
     def for_population(
@@ -644,7 +651,9 @@ class GpuVerifier:
         top = _bucket_size(max(1, min(max_sweep, BUCKETS[-1])))
         self.warm(pubkeys=pubkeys, buckets=[b for b in BUCKETS if b <= top])
         self._warm_done = True
-        self._launches_at_warm = _kernel_launches()
+        with _DEVICE_LOCK:
+            self._launches_at_warm = _kernel_launches()
+            self._chunks_at_warm = self._chunks
 
     def warm(
         self,
@@ -698,6 +707,21 @@ class GpuVerifier:
             },
         }
 
+    def launch_tally(self) -> dict:
+        """The chunks dispatched since the warm ended and each CUDA
+        kernel's launches since then, read together under the device lock:
+        a chunk enqueues its launches and counts itself inside that lock,
+        so the two agree even while passes are in flight. Also the largest
+        dispatch after the warm and how many were split into chunks."""
+        with _DEVICE_LOCK:
+            return {
+                "chunks": self._chunks - self._chunks_at_warm,
+                "launches": {k: v - self._launches_at_warm[k]
+                             for k, v in _kernel_launches().items()},
+                "max_dispatch_items": self.max_dispatch_items,
+                "chunked_dispatches": self.chunked_dispatches,
+            }
+
     def verify_batch(self, items: Sequence[BatchItem]) -> List[bool]:
         return self.dispatch_batch(items)()
 
@@ -712,6 +736,10 @@ class GpuVerifier:
 
         finishers = []
         maxb = BUCKETS[-1]
+        if self._warm_done:
+            self.max_dispatch_items = max(self.max_dispatch_items, len(items))
+            if len(items) > maxb:
+                self.chunked_dispatches += 1
         # the dispatcher's queue-wait annotation covers the WHOLE take:
         # consume it once here and attribute it to the first chunk
         annotation = devledger.take_annotation()
@@ -786,6 +814,7 @@ class GpuVerifier:
         with _DEVICE_LOCK:
             t0 = time.perf_counter()
             dev_out = self.mesh_pass(arrays)  # CUDA: enqueue only
+            self._chunks += 1
             self.device_calls += 1
             self.device_items += len(items)
 

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass, field, fields
 from typing import Any, Callable, ClassVar, Dict, List, Optional, Tuple, Type
 
@@ -64,19 +66,62 @@ def sha256_hex(data: bytes) -> str:
 
 MAX_NESTING = 16
 
+# One of the port's edits here (from_wire): an in-process committee
+# delivers one broadcast frame, the same bytes, to every replica, and the
+# JAX package's from_wire parses, depth-walks and signs-over it once for
+# each. A frame of SHARED_DECODE_BYTES or more (VIEW-CHANGEs, NEW-VIEWs,
+# pre-prepares with full blocks) is parsed and checked once a process:
+# later calls with the same bytes build their own message from the shared
+# decoded fields and take the shared signing payload. from_dict copies
+# the top level, so each caller's fields and private attributes are its
+# own; nested proofs and blocks are shared, which no caller mutates in
+# place (each payload and digest is computed from them as received).
+# The memo holds the most recent frames up to _DECODED_BUDGET bytes of
+# wire: a failover broadcasts one VIEW-CHANGE from each of n replicas at
+# once, and each must stay until every replica has taken it.
+SHARED_DECODE_BYTES = 64 * 1024
+_DECODED_BUDGET = 64 * 1024 * 1024
+_DECODED: "OrderedDict[bytes, Tuple[Dict[str, Any], bytes]]" = OrderedDict()
+_decoded_bytes = 0
+_DECODED_LOCK = threading.Lock()
+
 
 def _check_depth(obj: Any, limit: int = MAX_NESTING) -> None:
     """Iteratively bound container nesting so a hostile packet can't drive
-    json.dumps (signing/digest paths) into RecursionError later."""
-    stack = [(obj, 0)]
-    while stack:
-        o, d = stack.pop()
-        if d > limit:
+    json.dumps (signing/digest paths) into RecursionError later.
+
+    One of the port's edits here: the walk goes level by level (every value at
+    depth d, then every value at d + 1) where the JAX package's pops one
+    (value, depth) pair at a time. It raises for the same inputs (some
+    value deeper than `limit`) and makes no tuple a value, which is what
+    a large certificate's walk spent its time on: every replica of an
+    in-process committee decodes each VIEW-CHANGE and NEW-VIEW."""
+    level = [obj]
+    depth = 0
+    while level:
+        if depth > limit:
             raise ValueError("message nesting too deep")
-        if isinstance(o, dict):
-            stack.extend((v, d + 1) for v in o.values())
-        elif isinstance(o, list):
-            stack.extend((v, d + 1) for v in o)
+        deeper: List[Any] = []
+        for o in level:
+            if isinstance(o, dict):
+                deeper.extend(o.values())
+            elif isinstance(o, list):
+                deeper.extend(o)
+        level = deeper
+        depth += 1
+
+
+def _remember(raw: bytes, d: Dict[str, Any], payload: bytes) -> None:
+    """Keep a decoded frame for from_wire, the oldest dropped past the
+    byte budget."""
+    global _decoded_bytes
+    with _DECODED_LOCK:
+        if raw not in _DECODED:
+            _DECODED[raw] = (d, payload)
+            _decoded_bytes += len(raw)
+        while _decoded_bytes > _DECODED_BUDGET and len(_DECODED) > 1:
+            old, _ = _DECODED.popitem(last=False)
+            _decoded_bytes -= len(old)
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +328,18 @@ class Message:
                 and b'"kind":"blockreply"' not in raw
             ):
                 raise ValueError("message too large for its type")
+        shared = type(raw) is bytes and len(raw) >= SHARED_DECODE_BYTES
+        if shared:
+            with _DECODED_LOCK:
+                hit = _DECODED.get(raw)
+                if hit is not None:
+                    _DECODED.move_to_end(raw)
+            if hit is not None:
+                d, payload = hit
+                # the first decode passed every check below on these bytes
+                msg = Message.from_dict(d, _depth_checked=True)
+                msg.__dict__["_payload"] = payload
+                return msg
         try:
             d = json.loads(raw)
         except (json.JSONDecodeError, UnicodeDecodeError, RecursionError) as e:
@@ -300,6 +357,8 @@ class Message:
         msg = Message.from_dict(d, _depth_checked=shallow)
         if len(raw) > type(msg).MAX_WIRE_BYTES:
             raise ValueError("message too large for its type")
+        if shared:
+            _remember(raw, d, msg.signing_payload())
         return msg
 
     # -- signing ------------------------------------------------------------
@@ -452,10 +511,17 @@ class PrePrepare(Message):
         view-change certificates ship digest-only pre-prepares and lets
         replicas refill blocks from their store or a fetch without
         breaking the primary's signature."""
-        d = self.to_dict()
-        d["sig"] = ""
-        d["block"] = []
-        return canonical_json(d)
+        # cached as Message.signing_payload caches (the port's edit: the
+        # JAX package encodes it anew on every call); __setattr__ drops
+        # the cache when a field is set
+        cached = self.__dict__.get("_payload")
+        if cached is None:
+            d = self.to_dict()
+            d["sig"] = ""
+            d["block"] = []
+            cached = canonical_json(d)
+            self.__dict__["_payload"] = cached
+        return cached
 
     @staticmethod
     def block_digest(block: List[Dict[str, Any]]) -> str:
@@ -580,10 +646,17 @@ class ViewChange(Message):
         different valid proof for the same h changes nothing the
         protocol consumes; substituting an invalid one is rejected —
         the same outcome as dropping the message."""
-        d = self.to_dict()
-        d["sig"] = ""
-        d["checkpoint_proof"] = []
-        return canonical_json(d)
+        # cached as Message.signing_payload caches (the port's edit: the
+        # JAX package encodes it anew on every call); __setattr__ drops
+        # the cache when a field is set
+        cached = self.__dict__.get("_payload")
+        if cached is None:
+            d = self.to_dict()
+            d["sig"] = ""
+            d["checkpoint_proof"] = []
+            cached = canonical_json(d)
+            self.__dict__["_payload"] = cached
+        return cached
 
 
 @dataclass

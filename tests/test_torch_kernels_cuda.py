@@ -33,7 +33,9 @@ a card and no JAX it runs on its own:
   Mesh(["cuda:0"] * 4) equal the same steps on Mesh(["cpu"] * 4), with
   four launches of each kernel;
 - the replica-unit bench with the gpu verifier makes device passes of
-  both kernels in plain and qc mode.
+  both kernels in plain and qc mode;
+- a pile of 2 x 8,192 + 1 items splits into three chunks of the top
+  bucket, in order, with the oracle's bitmap.
 """
 
 import numpy as np
@@ -531,3 +533,32 @@ def test_replica_unit_verifies_on_the_card(card, mode, monkeypatch):
     assert rec["kernel_launches"]["fused_accumulate"] > 0, rec
     assert rec["kernel_launches"]["encode_verdict"] > 0, rec
     assert rec["bank_keys"] == 16 + bench_replica_unit.N_CLIENTS
+
+
+@pytest.mark.cuda
+def test_pile_over_the_top_bucket_splits_into_chunks_on_the_card(card):
+    """2 x 8,192 + 1 items, the largest pile a NEW-VIEW storm can send in
+    one submission: GpuVerifier.dispatch_batch splits it into three chunks
+    of the top bucket, in order, one launch of each kernel a chunk, and
+    the bitmap is the oracle's, with bad signatures on both sides of each
+    chunk edge."""
+    from simple_pbft_tpu_torch.crypto.gpu_verifier import BUCKETS, GpuVerifier
+    from simple_pbft_tpu_torch.crypto.verifier import BatchItem, kernel_equivalent_cpu_verifier
+
+    top = BUCKETS[-1]
+    signed = [_signed(i % 16, b"storm pile %d" % i) for i in range(1024)]
+    items = (signed * (2 * top // len(signed) + 1))[: 2 * top + 1]
+    bad = (top - 1, top, 2 * top - 1, 2 * top)
+    for p in bad:
+        sig = bytearray(items[p].sig)
+        sig[40] ^= 0x10
+        items[p] = BatchItem(items[p].pubkey, items[p].msg, bytes(sig))
+    oracle = kernel_equivalent_cpu_verifier().verify_batch(items)
+    assert [i for i, ok in enumerate(oracle) if not ok] == list(bad)
+    v = GpuVerifier(initial_keys=16)
+    v.warm_for_population([it.pubkey for it in signed[:16]], max_sweep=top)
+    assert v.verify_batch(items) == oracle
+    tally = v.launch_tally()
+    assert tally["chunks"] == 3 and tally["chunked_dispatches"] == 1
+    assert tally["max_dispatch_items"] == 2 * top + 1 and v.post_warm_compiles == 0
+    assert tally["launches"] == {"fused_accumulate": 3, "encode_verdict": 3, "ladder_verify": 0}

@@ -90,6 +90,24 @@ def test_bench_consensus_prints_one_line_per_config():
     assert recs[0]["committed_req_s"] > 0 and recs[0]["client_timeouts"] == 0
 
 
+def test_storm_passes_the_smokes_config5_checks(tmp_path):
+    """BASELINE config 5's entry point (--storm) at n = 4 on the CPU
+    verifier, one primary crash: its record and flight frames pass
+    chip_smoke.py's own storm checks, the card's checks left out."""
+    import importlib.util
+
+    out = _run(["simple_pbft_tpu_torch.bench_consensus", "--configs", "1", "--storm",
+                "--verifier", "cpu", "--crashes", "1", "--seconds", "6",
+                "--view-timeout", "1", "--flight-dir", str(tmp_path)], timeout=120)
+    assert out.returncode == 0, out.stderr[-1500:]
+    (rec,) = _json_lines(out.stdout)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    summary = smoke.storm_checks(rec, str(tmp_path), n=4, crashes=1, device=False)
+    assert summary["final_view"] >= 1 and summary["survivors"] == 3
+
+
 @pytest.mark.parametrize("entry", ["node", "launch", "bench", "bench_consensus"])
 def test_gpu_entry_point_refuses_to_run_without_cuda(entry, tmp_path):
     """On a host without CUDA the entry points, run with their default
