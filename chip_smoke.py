@@ -84,7 +84,11 @@ the sources in the repository, then, printing one JSON line per phase:
               between the two kernels, taken by CUDA events in the same
               passes; a torch.profiler trace of one pass, which must hold
               exactly the two kernels besides copies;
-7b. costmodel — the card's gather rate: torch.index_select of the rows one
+7b. costmodel — the card's memory read rate (torch.sum over a 2 GiB
+              int32 tensor, far past the 50 MB L2 cache, the bytes read
+              over the median of 20 calls by CUDA events), the measure of
+              the cost model's "h100" ceiling; the card's gather rate:
+              torch.index_select of the rows one
               fused w=4 pass reads at B = 8192 (8192 x 64 random rows)
               from a 256-slot bank's table, in dense (256 B) and packed
               (128 B) rows, as 4-, 8- and 16-byte elements, the median
@@ -95,7 +99,12 @@ the sources in the repository, then, printing one JSON line per phase:
               rows: 8,192 distinct signed messages on the verifier's
               128-key bank (bitmap all true, K1 equal to its plain
               version), its one-call and back-to-back times beside the
-              tiled batch's and the distinct rows each gathers;
+              tiled batch's and the distinct rows each gathers. The
+              distinct rows' shares of the ceiling (the verifier phase's
+              batch, the cold and the tiled batch) must lie in (0, 1]:
+              a distinct row comes from device memory at least once.
+              The all-rows share is printed, not checked: repeated rows
+              come from the L2 cache;
 8. committee (the main path) — an n=16 (f=5) LocalCommittee whose
               replicas share one VerifyService over one GpuVerifier, with
               the CPU routes turned off; 16 clients x 25 puts; every reply
@@ -152,6 +161,14 @@ the sources in the repository, then, printing one JSON line per phase:
               launch of K1 and of the verdict kernel a chunk and none of K9.
               It prints the largest dispatch and the dispatches split into
               chunks of the top bucket;
+9e2. observatory — python -m simple_pbft_tpu_torch.tools.verify_observatory
+              --flight-dir D --platform h100 --json on the flight frames and
+              span file that config5 wrote (no drive of its own; D is
+              removed after this phase): exit 0 with device dispatches,
+              the four latency shares summing to 1 within 1e-4, the device
+              ledger and the verify.device spans within the tool's 15%, a
+              limiter of the tool's five and the roofline utilization in
+              (0, 1]. The verdict document is printed;
 9f. n100 (a main path) — python -m simple_pbft_tpu_torch.bench_consensus
               --configs 100,qc100 --verifier gpu --verify-cpu-cutoff 0: the
               committee of 100 (BASELINE's metric) without and with BLS
@@ -1494,6 +1511,27 @@ def gather_probe(row_words, seed):
             "ms": views[best]["ms"], "gbps": views[best]["gbps"]}
 
 
+# the read probe: the card's memory read rate, the cost model's "h100"
+# ceiling. torch.sum streams READ_BYTES of int32 once, far past the 50 MB
+# L2 cache, so every byte comes from device memory
+READ_BYTES, READ_CALLS = 2 << 30, 20
+
+
+def read_probe():
+    """torch.sum over a READ_BYTES int32 tensor of ones on the card: the
+    bytes read over the median of READ_CALLS calls by CUDA events."""
+    import torch
+
+    x = torch.ones(READ_BYTES // 4, dtype=torch.int32, device="cuda")
+    # an int32 result: with its default int64 one, torch.sum read the
+    # tensor at a fifth of this rate on the H100
+    check(int(torch.sum(x, dtype=torch.int32)) == x.numel(), "torch.sum missed elements")
+    ms = cuda_ms(lambda: torch.sum(x, dtype=torch.int32), READ_CALLS)
+    del x
+    torch.cuda.empty_cache()
+    return {"bytes": READ_BYTES, "calls": READ_CALLS, "ms": ms, "gbps": READ_BYTES / ms / 1e6}
+
+
 def _sign_all(jobs):
     """Ed25519 signatures of (seed, msg) pairs: OpenSSL where the
     `cryptography` wheel is installed, else the RFC 8032 reference on one
@@ -1557,32 +1595,41 @@ def cold_rows(verifier):
 
 
 def phase_costmodel(verifier):
-    """The cost model's roofline join: the card's gather rate (dense and
-    packed rows), the model's fused w=4 shape at B = 8192, and the
+    """The cost model's roofline join: the card's read rate (read_probe,
+    the measure of the model's `h100` ceiling), its gather rate (dense
+    and packed rows), the model's fused w=4 shape at B = 8192, and the
     verifier phase's K1 time as an achieved gather rate against the
-    model's `h100` ceiling; then K1 on cold rows (cold_rows) against the
-    same ceiling."""
+    ceiling; then K1 on cold rows (cold_rows) against the same ceiling.
+    Each distinct-row share must lie in (0, 1]; the all-rows share is
+    printed only."""
     from simple_pbft_tpu_torch.crypto import costmodel
     from simple_pbft_tpu_torch.ops import comb
 
+    read = read_probe()
     dense = gather_probe(comb.ROW_DENSE, 1)
     packed = gather_probe(comb.ROW_PACKED, 2)
     cost = costmodel.shape_cost("fused", 4, verifier["batch"])
     check(cost["row_bytes"] == 256 and cost["gather_bytes_per_pass"] == dense["gathered_bytes"],
           f"shape_cost disagrees with the probe's rows: {cost}")
     peak = costmodel.PEAK_GATHER_GBPS["h100"]
-    check(dense["gbps"] > 0 and packed["gbps"] > 0 and peak > 0, "no gather rate")
+    check(read["gbps"] > 0 and dense["gbps"] > 0 and packed["gbps"] > 0 and peak > 0,
+          "no read or gather rate")
     k1_ms = verifier["accumulate_ms"]
     achieved = cost["gather_bytes_per_pass"] / k1_ms / 1e6
     distinct = verifier["distinct_rows"] * cost["row_bytes"] / k1_ms / 1e6
     cold = cold_rows(verifier)
     for name in ("cold", "tiled"):
         cold[name]["distinct_share_of_peak"] = cold[name]["distinct_gbps"] / peak
-    emit("costmodel", gather_dense=dense, gather_packed=packed, shape_cost=cost,
+    shares = {"verifier": distinct / peak,
+              **{name: cold[name]["distinct_share_of_peak"] for name in ("cold", "tiled")}}
+    emit("costmodel", read_probe=read, read_share_of_peak=read["gbps"] / peak,
+         gather_dense=dense, gather_packed=packed, shape_cost=cost,
          k1_ms=k1_ms, k1_gather_gbps=achieved, peak_gather_gbps=peak,
          k1_share_of_peak=achieved / peak, k1_share_of_this_probe=achieved / dense["gbps"],
          k1_distinct_rows=verifier["distinct_rows"], k1_distinct_gather_gbps=distinct,
          k1_distinct_share_of_peak=distinct / peak, k1_cold_rows=cold)
+    check(all(0 < v <= 1 for v in shares.values()),
+          f"K1's distinct rows read outside (0, 1] of the h100 ceiling {peak} GB/s: {shares}")
     return cold
 
 
@@ -2145,6 +2192,39 @@ def _device_only(rec, what):
     return launches
 
 
+def storm_timeline(flight_dir):
+    """The failovers' timeline from a storm's flight frames, in seconds
+    since the replicas started: when each crashed replica's frames first
+    show it stopped, the first and last survivor's first frame in each
+    view it installed (and how many), and the survivors' views at their
+    last frame. -> (frames by replica, the survivors' frames, the
+    survivors by end view, the timeline)."""
+    frames = {}
+    for path in sorted(glob.glob(os.path.join(flight_dir, "*.flight.jsonl"))):
+        with open(path) as fh:
+            docs = [json.loads(line) for line in fh if line.strip()]
+        # a stall's autopsy lands in the same file: keep the frames, each
+        # as its replica block with the frame's uptime
+        frames[os.path.basename(path).split(".")[0]] = [
+            {**d["replica"], "t": d["uptime_s"]} for d in docs if "replica" in d]
+    survivors = {rid: fr for rid, fr in frames.items() if fr and fr[-1]["running"]}
+    installs = {}
+    for fr in survivors.values():
+        for v in sorted({f["view"] for f in fr} - {0}):
+            installs.setdefault(v, []).append(next(f["t"] for f in fr if f["view"] == v))
+    ends = {}
+    for rid, fr in survivors.items():
+        ends.setdefault(fr[-1]["view"], []).append(rid)
+    timeline = {"survivors": len(survivors),
+                "crash_s": sorted(next(f["t"] for f in fr if not f["running"])
+                                  for rid, fr in frames.items() if fr and rid not in survivors),
+                "install_s": {str(v): [min(ts), max(ts), len(ts)]
+                              for v, ts in sorted(installs.items())},
+                "end_views": {str(v): len(rids) for v, rids in sorted(ends.items())},
+                "end_s": max((fr[-1]["t"] for fr in frames.values() if fr), default=None)}
+    return frames, survivors, ends, timeline
+
+
 def storm_checks(rec, flight_dir, n, crashes, device=True):
     """BASELINE config 5's checks on one storm record of bench_consensus
     and the flight frames its run wrote under `flight_dir`: the record's
@@ -2160,37 +2240,14 @@ def storm_checks(rec, flight_dir, n, crashes, device=True):
           and rec.get("primary_crashes") == crashes,
           f"storm ran another shape: {rec['config']}, n {rec['n']}, "
           f"crashes {rec.get('primary_crashes')}")
-    frames = {}
-    for path in sorted(glob.glob(os.path.join(flight_dir, "*.flight.jsonl"))):
-        with open(path) as fh:
-            docs = [json.loads(line) for line in fh if line.strip()]
-        # a stall's autopsy lands in the same file: keep the frames, each
-        # as its replica block with the frame's uptime
-        frames[os.path.basename(path).split(".")[0]] = [
-            {**d["replica"], "t": d["uptime_s"]} for d in docs if "replica" in d]
+    frames, survivors, ends, timeline = storm_timeline(flight_dir)
     check(len(frames) == n and all(frames.values()),
           f"{len(frames)} replicas' flight frames, not {n}")
-    survivors = {rid: fr for rid, fr in frames.items() if fr[-1]["running"]}
-    # the failovers' timeline in seconds since the replicas started: when
-    # each crashed replica's frames first show it stopped, and the first
-    # and last survivor's first frame in each view it installed
-    installs = {}
-    for fr in survivors.values():
-        for v in sorted({f["view"] for f in fr} - {0}):
-            installs.setdefault(v, []).append(next(f["t"] for f in fr if f["view"] == v))
-    ends = {}
-    for rid, fr in survivors.items():
-        ends.setdefault(fr[-1]["view"], []).append(rid)
     metrics = rec["telemetry"]["end"]["replica_metrics"]
     counts = {k: metrics.get(k, 0) for k in ("views_installed", "new_views_sent",
-                                             "bad_newview_precheck", "bad_viewchange_precheck")}
-    summary = {"survivors": len(survivors),
-               "crash_s": sorted(next(f["t"] for f in fr if not f["running"])
-                                 for rid, fr in frames.items() if rid not in survivors),
-               "install_s": {str(v): [min(ts), max(ts), len(ts)]
-                             for v, ts in sorted(installs.items())},
-               "end_views": {str(v): len(rids) for v, rids in sorted(ends.items())},
-               "end_s": max(fr[-1]["t"] for fr in frames.values()), **counts}
+                                             "bad_newview_precheck", "bad_viewchange_precheck",
+                                             "ahead_msgs_buffered", "ahead_msgs_replayed")}
+    summary = {**timeline, **counts}
     check(len(survivors) == n - crashes,
           f"{len(survivors)} survivors of {n} after {crashes} crashes: {summary}")
     check(len(ends) == 1 and min(ends) >= crashes,
@@ -2231,24 +2288,26 @@ CONFIG5_KEYS = ("config", "n", "clients", "outstanding", "window_s", "seconds", 
                 "launch_tally", "bank_keys", "bank_max_keys", "keys_over_cap", "loop_lag")
 
 
-def phase_config5():
+def phase_config5(flight):
     """python -m simple_pbft_tpu_torch.bench_consensus --configs 3 --storm
     --verifier gpu: BASELINE config 5 in one process, its flight frames
-    under a directory removed when the phase returns. The checks are
-    storm_checks'; the line prints the largest dispatch and how many were
-    split into chunks of the top bucket."""
+    and span file under `flight` (phase observatory reads them; the
+    caller removes the directory). The checks are storm_checks'; the line
+    prints the largest dispatch and how many were split into chunks of
+    the top bucket."""
     from simple_pbft_tpu_torch.crypto.gpu_verifier import BUCKETS
 
-    flight = tempfile.mkdtemp(prefix="chip_smoke_config5_")
+    t0 = time.perf_counter()
     try:
-        t0 = time.perf_counter()
         recs, card_used = _run_sampled(["simple_pbft_tpu_torch.bench_consensus", *CONFIG5_ARGS,
                                         "--flight-dir", flight], "committed_req_s", 900)
-        rec = recs[-1]
-        wall = time.perf_counter() - t0
-        summary = storm_checks(rec, flight, 64, CONFIG5_CRASHES)
-    finally:
-        shutil.rmtree(flight, ignore_errors=True)
+    except AssertionError as e:
+        # a storm that did not end (the bench's watchdog) leaves no record:
+        # its flight frames say where the failovers stood
+        raise AssertionError(f"{e} -- flight frames: {storm_timeline(flight)[3]}") from None
+    rec = recs[-1]
+    wall = time.perf_counter() - t0
+    summary = storm_checks(rec, flight, 64, CONFIG5_CRASHES)
     tally = rec["launch_tally"]
     emit("config5", args=list(CONFIG5_ARGS), record={k: rec.get(k) for k in CONFIG5_KEYS},
          storm=summary, largest_dispatch=tally["max_dispatch_items"],
@@ -2256,6 +2315,40 @@ def phase_config5():
          crossed_top_bucket=tally["max_dispatch_items"] > BUCKETS[-1],
          card_used_bytes=card_used, wall_s=wall, boot_s=wall - rec["seconds"])
     return {k: summary["launches"][k] for k in ("fused_accumulate", "encode_verdict")}
+
+
+def phase_observatory(flight):
+    """python -m simple_pbft_tpu_torch.tools.verify_observatory
+    --flight-dir `flight` --platform h100 --json: the port's roofline
+    verdict on config 5's flight frames and span file. It drives nothing;
+    the verdict is printed, then held to the tool's own gates: device
+    dispatches, the four latency shares summing to 1 within 1e-4, the
+    ledger and the spans within the tool's tolerance, a limiter of the
+    tool's LIMITERS and the roofline's utilization in (0, 1]."""
+    from simple_pbft_tpu_torch.tools.verify_observatory import LIMITERS
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "simple_pbft_tpu_torch.tools.verify_observatory",
+         "--flight-dir", flight, "--platform", "h100", "--json"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"verify_observatory exited {proc.returncode}: {proc.stderr[-2000:]}")
+    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit("observatory", flight_files=len(glob.glob(os.path.join(flight, "*.flight.jsonl"))),
+         span_files=len(glob.glob(os.path.join(flight, "*.spans.jsonl"))),
+         tool_s=time.perf_counter() - t0, verdict=verdict)
+    shares = verdict["decomposition"]["shares"]
+    rec = verdict["reconciliation"]
+    util = verdict["roofline"]["utilization"]
+    check(verdict["device"].get("dispatches", 0) > 0, "the observatory found no device dispatch")
+    check(len(shares) == 4 and abs(sum(shares.values()) - 1) <= 1e-4,
+          f"the observatory's shares do not sum to 1: {shares}")
+    check(rec["ok"], f"the device ledger and the spans differ by more than "
+                     f"{rec['tolerance_pct']}%: {rec}")
+    check(verdict["limiter"] in LIMITERS, f"the observatory's limiter: {verdict['limiter']}")
+    check(util is not None and 0 < util <= 1,
+          f"the observatory's utilization outside (0, 1]: {verdict['roofline']}")
 
 
 # the n = 100 committee (BASELINE.json's metric, committed req/s at n = 100)
@@ -2538,7 +2631,12 @@ def main(argv=None):
     by_path["replica_unit"] = timed("replica_unit", phase_replica_unit)
     by_path["config3"] = timed("config3", phase_config3)
     by_path["config4"] = timed("config4", phase_config4)
-    by_path["config5"] = timed("config5", phase_config5)
+    flight = tempfile.mkdtemp(prefix="chip_smoke_config5_")
+    try:
+        by_path["config5"] = timed("config5", phase_config5, flight)
+        timed("observatory", phase_observatory, flight)
+    finally:
+        shutil.rmtree(flight, ignore_errors=True)
     by_path["n100"] = timed("n100", phase_n100)
     by_path["modes"] = _modes_launches(modes)
     for kernel, count in by_path["modes"].items():

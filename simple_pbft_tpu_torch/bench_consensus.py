@@ -294,6 +294,10 @@ async def run_config(
         # speculative execution at PREPARED (on by default;
         # --no-spec is the A/B arm measuring the pre-speculation shape)
         speculative=speculative,
+        # a replica that installs a view late replays the view's
+        # pre-prepares and votes it received before (the simulator keeps
+        # the reference's drop)
+        ahead_buffer=True,
     )
     for c in com.clients:
         # Storms/chaos: the first send of a request can go to a crashed

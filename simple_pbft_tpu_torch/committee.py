@@ -38,6 +38,7 @@ class LocalCommittee:
         app_factory=KVStore,
         shed_watermark: int = 0,
         max_drain: int = 0,
+        ahead_buffer: bool = False,
         **cfg_overrides,
     ) -> "LocalCommittee":
         cfg, keys = make_test_committee(n=n, clients=clients, **cfg_overrides)
@@ -60,6 +61,7 @@ class LocalCommittee:
                     transport=net.endpoint(rid),
                     app=app_factory(),
                     verifier=verifier_factory() if verifier_factory else None,
+                    ahead_buffer=ahead_buffer,
                     **shed_kw,
                 )
             )

@@ -153,6 +153,7 @@ class Replica:
         verifier: Optional[Verifier] = None,
         max_drain: int = 4096,
         shed_watermark: int = 0,
+        ahead_buffer: bool = False,
     ) -> None:
         self.id = node_id
         self.cfg = cfg
@@ -231,6 +232,13 @@ class Replica:
         # NEW-VIEW pre-prepares beyond our lagging watermark window,
         # replayed after state transfer advances stable_seq
         self.vc_replay: Dict[int, PrePrepare] = {}
+        # verified phase messages of views ahead of ours, by view in
+        # arrival order, replayed when that view installs (_buffer_ahead;
+        # off by default, which keeps the reference's drop, so the port's
+        # simulator runs the JAX package's protocol message for message)
+        self.ahead_buffer = ahead_buffer
+        self.ahead_msgs: Dict[int, List[Message]] = {}
+        self._ahead_by_sender: Dict[str, int] = defaultdict(int)
         # blocks by digest: certificates ship digest-only pre-prepares
         # (messages.PrePrepare.signing_payload), so installs refill from
         # here; GC'd against the stable watermark via the seq binding
@@ -1186,6 +1194,7 @@ class Replica:
                 # traffic from a view ahead means the NEW-VIEW it is
                 # waiting for (or a later one) already exists
                 self.vc.note_higher_view(msg.view)
+                self._buffer_ahead(msg)
             allow = (
                 not isinstance(msg, Prepare)
                 and msg.view == self.view
@@ -1202,6 +1211,7 @@ class Replica:
                 # verified traffic from a view ahead of us: a NEW-VIEW we
                 # never received exists — the probe fetches it
                 self.vc.note_higher_view(msg.view)
+                self._buffer_ahead(msg)
             self.metrics["wrong_view"] += 1
             return
         if not self._in_window(msg.seq):
@@ -2748,6 +2758,43 @@ class Replica:
             for (c, ts), r in self.relay_buffer.items()
             if ts > self.client_watermark.get(c, 0)
         }
+
+    # verified phase messages kept for views ahead of ours, a sender
+    AHEAD_PER_SENDER = 256
+
+    def _buffer_ahead(self, msg) -> None:
+        """Keep a verified pre-prepare or vote of a view ahead of ours for
+        replay when that view installs (replay_ahead). A replica that
+        installs a view after its peers began it (a NEW-VIEW verified
+        late, or one fetched after a lost broadcast) would otherwise have
+        dropped the view's first pre-prepares and votes, and without QCs
+        no peer sends its votes again once its own execution moves on:
+        the slot stays a hole until the next stable checkpoint. Bounded a
+        sender, so a faulty replica's flood displaces no one else's."""
+        if not self.ahead_buffer or not isinstance(msg, (PrePrepare, Prepare, Commit)):
+            return
+        if msg.view > self.view + self.vc.MAX_VIEWS_AHEAD:
+            return
+        if self._ahead_by_sender[msg.sender] >= self.AHEAD_PER_SENDER:
+            self.metrics["ahead_msgs_dropped"] += 1
+            return
+        self._ahead_by_sender[msg.sender] += 1
+        self.ahead_msgs.setdefault(msg.view, []).append(msg)
+        self.metrics["ahead_msgs_buffered"] += 1
+
+    async def replay_ahead(self) -> None:
+        """After an install: feed the installed view's buffered messages
+        through _on_phase in arrival order; drop those of views now
+        behind."""
+        now = self.ahead_msgs.pop(self.view, [])
+        self.ahead_msgs = {v: m for v, m in self.ahead_msgs.items() if v > self.view}
+        self._ahead_by_sender = defaultdict(int)
+        for msgs in self.ahead_msgs.values():
+            for m in msgs:
+                self._ahead_by_sender[m.sender] += 1
+        for m in now:
+            self.metrics["ahead_msgs_replayed"] += 1
+            await self._on_phase(m)
 
     async def _replay_vc_buffer(self) -> None:
         """Feed buffered NEW-VIEW pre-prepares (seqs that were beyond our

@@ -1223,4 +1223,7 @@ class ViewChanger:
             # O-set only re-issues PREPARED work, so anything less
             # travelled relies on exactly this hand-off
             await r.rerelay_outstanding(new_view)
+        # the new view's pre-prepares and votes that reached us before
+        # this install
+        await r.replay_ahead()
         await r.propose_if_ready()

@@ -19,14 +19,16 @@ these constants give achieved-vs-peak gather bandwidth and a
 dominant-limiter verdict.
 
 Reference peaks are MEASURED operating ceilings, not datasheet
-numbers: ``h100`` is the rate at which ``torch.index_select`` gathers
-the rows of one fused w=4 dense pass at B = 8192 (8192 x 64 random
-256 B rows, 134,217,728 B) from a 256-slot key bank's flattened table
-(1,073,741,824 B), the median of 20 calls between CUDA events
-(``chip_smoke.py`` phase ``costmodel``). The rows are random and every
-one is read once, so none comes from the L2 cache: a pass whose batch
-repeats rows (a key's rows are shared by its signatures) can gather
-faster. On a CPU backend no peak is meaningful and callers get
+numbers: ``h100`` is the card's memory read rate, the bytes that
+``torch.sum`` reads from a 2 GiB int32 tensor (far past the 50 MB L2
+cache) over the median of 20 calls between CUDA events
+(``chip_smoke.py`` ``read_probe``, phase ``costmodel``). A gather reads
+each distinct table row from device memory at least once, so a pass's
+distinct rows over its time cannot pass this ceiling; rows a batch
+repeats (a key's rows are shared by its signatures) come from the L2
+cache, so a rate of all rows gathered can. The rate of a gather by
+``torch.index_select`` is a measurement of its own (the same phase), not
+the ceiling. On a CPU backend no peak is meaningful and callers get
 ``None``.
 """
 
@@ -36,13 +38,11 @@ from typing import Any, Dict, Optional
 
 from ..ops import comb
 
-# measured effective gather-bandwidth ceilings by platform key (GB/s).
-# h100: chip_smoke.py phase costmodel on "NVIDIA H100 80GB HBM3, 700.00 W"
-# (2026-10-17): the rows gathered (not the copy written) over the median
-# call, 0.333216 ms, 402.79497 GB/s. The table viewed as 4-, 8- or
-# 16-byte elements gave the same time within 0.4%, and packed 128 B rows
-# took as long, 201.18 GB/s: the rate is one of rows, 1.57e9 a second.
-PEAK_GATHER_GBPS: Dict[str, float] = {"h100": 402.8}
+# measured gather-bandwidth ceilings by platform key (GB/s).
+# h100: chip_smoke.py read_probe (phase costmodel) on "NVIDIA H100 80GB
+# HBM3, 700.00 W": 2,147,483,648 B read by torch.sum over the median
+# call, 0.7229119837284088 ms, 2970.6018 GB/s.
+PEAK_GATHER_GBPS: Dict[str, float] = {"h100": 2970.6}
 
 # rough int-op cost of one mixed Edwards add on 17-limb field elements
 # (~8 field muls of 17x17 limb products, mul+add each): used only for

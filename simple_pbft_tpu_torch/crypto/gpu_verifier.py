@@ -519,6 +519,41 @@ def _mesh_specs(mode: str, axis: str):
 _DEVICE_LOCK = threading.Lock()
 
 
+class _PileClock:
+    """One dispatch's timeline, shared by its chunks for the device
+    ledger, which must count the time the service's `verify.device` span
+    counts, once. A chunk's ledger round trip starts where its host prep
+    ends, so that the prep span's write and the wait for the device lock
+    count in it. Every chunk is staged and enqueued before the first
+    verdict is read, so a chunk's plain staged-to-verdict time would also
+    hold the host prep of the chunks after it (each already in their own
+    `host_prep_s`) and the wait for the chunks before it (already in
+    theirs). So each later chunk's round trip starts where the previous
+    chunk's verdict was read, after that chunk's CPU fallback rows, and
+    the first one's leaves out the later chunks' prep: a pile's prep and
+    round trips tile its time from staging to verdicts, less the
+    fallback rows' CPU work. `GpuVerifier.device_seconds` keeps each
+    chunk's own enqueue-to-verdict time."""
+
+    def __init__(self) -> None:
+        self.prep_s = 0.0  # host prep of the chunks staged so far
+        self.free_at: Optional[float] = None  # where the next round trip may start
+
+    def round_trip(self, t0: float, prep_mark: float, now: float) -> float:
+        """The ledger's round trip of a chunk staged at `t0`, after
+        `prep_mark` seconds of the pile's prep, its verdict read at
+        `now`."""
+        if self.free_at is None:
+            return now - t0 - (self.prep_s - prep_mark)
+        return now - max(t0, self.free_at)
+
+    def read(self, at: float, fallback_s: float) -> None:
+        """A chunk's verdict was read at `at`, and its CPU fallback rows
+        took `fallback_s`: the next chunk's round trip starts no earlier
+        than their sum."""
+        self.free_at = at + fallback_s
+
+
 class GpuVerifier:
     """The `gpu` backend behind the crypto.Verifier seam, on a CUDA device.
 
@@ -743,9 +778,10 @@ class GpuVerifier:
         # the dispatcher's queue-wait annotation covers the WHOLE take:
         # consume it once here and attribute it to the first chunk
         annotation = devledger.take_annotation()
+        pile = _PileClock()
         for start in range(0, len(items), maxb):
             chunk = items[start : start + maxb]
-            finishers.append(self._dispatch_chunk(chunk, annotation))
+            finishers.append(self._dispatch_chunk(chunk, annotation, pile))
             annotation = (0.0, 0)
 
         def finish() -> List[bool]:
@@ -797,7 +833,8 @@ class GpuVerifier:
     def _dispatch_chunk(
         self,
         items: Sequence[BatchItem],
-        annotation: "tuple[float, int]" = (0.0, 1),
+        annotation: "tuple[float, int]",
+        pile: _PileClock,
     ):
         from .. import devledger, spans
 
@@ -807,12 +844,15 @@ class GpuVerifier:
         prep = prep.padded(size)
         arrays = prep.arrays()
         compile_fresh = self._record_shape(size)
-        prep_s = time.perf_counter() - t_prep
+        t0 = time.perf_counter()
+        prep_s = t0 - t_prep
+        pile.prep_s += prep_s
+        prep_mark = pile.prep_s
         spans.record(spans.VERIFY_HOST_PREP, prep_s, n=len(items))
         bytes_up = sum(a.nbytes for a in arrays)
         queue_wait_s, submissions = annotation
         with _DEVICE_LOCK:
-            t0 = time.perf_counter()
+            t_enq = time.perf_counter()
             dev_out = self.mesh_pass(arrays)  # CUDA: enqueue only
             self._chunks += 1
             self.device_calls += 1
@@ -823,16 +863,18 @@ class GpuVerifier:
             # verdicts join in mesh order into a writable array, whose
             # fallback rows below are set in place
             verdict = gather(dev_out)
-            rtt = time.perf_counter() - t0
+            t_read = time.perf_counter()
             with _DEVICE_LOCK:
-                self.device_seconds += rtt
+                self.device_seconds += t_read - t_enq
             devledger.record(
                 devledger.LANE_ED25519, self._mode, self._window, size,
-                len(items), host_prep_s=prep_s, rtt_s=rtt,
+                len(items), host_prep_s=prep_s,
+                rtt_s=pile.round_trip(t0, prep_mark, t_read),
                 compile_fresh=compile_fresh, bytes_up=bytes_up,
                 bytes_down=size, queue_wait_s=queue_wait_s,
                 submissions=submissions,
             )
+            t_fb = time.perf_counter()
             if fallback:
                 if self._cpu_fb is None:
                     from .verifier import kernel_equivalent_cpu_verifier
@@ -849,6 +891,7 @@ class GpuVerifier:
                 )
                 for i, ok_i in zip(fallback, fb_out):
                     verdict[i] = ok_i
+            pile.read(t_read, time.perf_counter() - t_fb if fallback else 0.0)
             return verdict[: prep.n].tolist()
 
         return finish

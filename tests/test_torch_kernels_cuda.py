@@ -35,7 +35,10 @@ a card and no JAX it runs on its own:
 - the replica-unit bench with the gpu verifier makes device passes of
   both kernels in plain and qc mode;
 - a pile of 2 x 8,192 + 1 items splits into three chunks of the top
-  bucket, in order, with the oracle's bitmap.
+  bucket, in order, with the oracle's bitmap;
+- the card's read rate (chip_smoke.read_probe, the measure of the cost
+  model's ceiling) is positive, and K1 reads the smoke's verifier batch's
+  distinct rows no faster.
 """
 
 import numpy as np
@@ -562,3 +565,35 @@ def test_pile_over_the_top_bucket_splits_into_chunks_on_the_card(card):
     assert tally["chunks"] == 3 and tally["chunked_dispatches"] == 1
     assert tally["max_dispatch_items"] == 2 * top + 1 and v.post_warm_compiles == 0
     assert tally["launches"] == {"fused_accumulate": 3, "encode_verdict": 3, "ladder_verify": 0}
+
+
+@pytest.mark.cuda
+def test_k1_distinct_rows_read_under_the_cards_read_rate(card):
+    """The read probe (torch.sum over 2 GiB of int32, the measure of the
+    cost model's "h100" ceiling) gives a positive rate, and K1 on the
+    smoke's verifier batch (BASELINE config 3's 128 keys, 1,024 messages
+    tiled 8 times) reads its distinct rows no faster than that: each
+    distinct row comes from device memory at least once."""
+    import importlib.util
+    import pathlib
+
+    from simple_pbft_tpu_torch.crypto.gpu_verifier import GpuVerifier, prepare_wire_batch
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    read = smoke.read_probe()
+    assert read["bytes"] == 2 << 30 and read["gbps"] > 0, read
+    pubkeys, items, _, oracle, _ = smoke._population("config3")
+    v = GpuVerifier(initial_keys=128 + 32)
+    v.warm_for_population(pubkeys, max_sweep=len(items))
+    assert v.verify_batch(items) == oracle
+    prep, fallback = prepare_wire_batch(items, v._bank)
+    assert not fallback
+    wire, a_idx, _ = (torch.from_numpy(a).to(v.device) for a in prep.arrays())
+    tables = v._bank.device_tables()
+    ms = smoke.cuda_ms(lambda: comb.accumulate_kernel.wire(wire, a_idx, tables), 20, 3)
+    distinct = torch.unique(comb.wire_index_plain(wire, a_idx)).numel()
+    gbps = distinct * comb.ROW * 4 / ms / 1e6
+    assert 0 < gbps <= read["gbps"], (gbps, read)

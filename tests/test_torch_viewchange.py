@@ -122,36 +122,45 @@ def test_tampered_certificate_bitmap_equals_jax_and_the_oracle(certificates, byt
 
 
 REQUESTS = ("put a 1", "put b 2", "put c 3")
+# both committees' view timer. A device pass on the plain versions takes
+# 0.1-0.3 s on an idle host and seconds on one loaded by a six-worker test
+# run; under a timer shorter than a pass, views change while requests
+# wait, each change doubling the timers, and the failover's length grows
+# with the load
+VIEW_TIMEOUT = 5.0
+# the whole scenario's bound: the three requests, the failover and the
+# survivors' settle
+SCENARIO_S = 170.0
 
 
-def _failover(com, settle=15.0):
+def _failover(com):
     """Commit REQUESTS[0], crash-stop r0 (view 0's primary), then commit
     the rest through a view change (as tests/test_viewchange.py's
-    failover test does); wait until every survivor has executed them.
+    failover test does); wait until every survivor is in a view past 0
+    and has executed them, or the scenario's deadline has passed.
     -> the survivors."""
 
     async def scenario():
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + SCENARIO_S
         com.start()
         try:
             client = com.clients[0]
             client.request_timeout = 0.25
-            # the plain versions' passes on a busy host can outlast the
-            # 0.3 s timer before r0 is killed too: patience for every op
+            # patience for every op: a busy host slows each pass
             assert await client.submit(REQUESTS[0], retries=60) == "ok"
             com.replica("r0").kill()
             for op in REQUESTS[1:]:
                 assert await client.submit(op, retries=60) == "ok"
             survivors = [r for r in com.replicas if r.id != "r0"]
-            loop = asyncio.get_running_loop()
-            deadline = loop.time() + settle
             while loop.time() < deadline and not all(
-                    r.app.data.get("c") == "3" for r in survivors):
+                    r.view >= 1 and r.app.data.get("c") == "3" for r in survivors):
                 await asyncio.sleep(0.05)
             return survivors
         finally:
             await com.stop()
 
-    return asyncio.run(asyncio.wait_for(scenario(), 180))
+    return asyncio.run(asyncio.wait_for(scenario(), SCENARIO_S + 10))
 
 
 def test_failover_on_the_device_path_matches_the_jax_committee():
@@ -161,7 +170,7 @@ def test_failover_on_the_device_path_matches_the_jax_committee():
     gpu = GpuVerifier(device="cpu", initial_keys=4 + 1 + 32)
     svc = VerifyService(gpu, cpu_cutoff=0, max_batch=32, dispatch_deadline=None)
     try:
-        com = LocalCommittee.build(n=4, clients=1, view_timeout=0.3,
+        com = LocalCommittee.build(n=4, clients=1, view_timeout=VIEW_TIMEOUT,
                                    verifier_factory=lambda: svc)
         # the service takes a submission larger than max_batch whole: a
         # sweep holding a NEW-VIEW and its certificates' signatures can
@@ -179,7 +188,7 @@ def test_failover_on_the_device_path_matches_the_jax_committee():
     digests = {r.app.state_digest() for r in survivors}
     assert len(digests) == 1
 
-    ref_survivors = _failover(JaxCommittee.build(n=4, clients=1, view_timeout=0.3))
+    ref_survivors = _failover(JaxCommittee.build(n=4, clients=1, view_timeout=VIEW_TIMEOUT))
     assert all(r.view >= 1 and r.app.data.get("c") == "3" for r in ref_survivors)
     assert {r.app.state_digest() for r in ref_survivors} == digests
 
@@ -341,3 +350,76 @@ def test_cached_payloads_follow_field_changes_as_the_jax_ones():
         step(jpp, jvc)
         assert tpp.signing_payload() == jpp.signing_payload()
         assert tvc.signing_payload() == jvc.signing_payload()
+
+
+def _votes_ahead(ahead_buffer):
+    """n = 4, replica r2 in view 0: prepares and commits of view 1, seq 1
+    from r1 and r3 reach it through the routed-message entry (_on_phase,
+    after the sweep verified them), then the install of view 1 replays
+    what was kept. -> (r2, the votes' count kept before the install)."""
+    from simple_pbft_tpu_torch.committee import LocalCommittee
+    from simple_pbft_tpu_torch.crypto.signer import Signer
+    from simple_pbft_tpu_torch.messages import Commit, Prepare
+
+    com = LocalCommittee.build(n=4, clients=1, ahead_buffer=ahead_buffer)
+    r2 = com.replica("r2")
+
+    async def scenario():
+        for sender in ("r1", "r3"):
+            for kind in (Prepare, Commit):
+                msg = kind(view=1, seq=1, digest="d" * 64)
+                Signer(sender, com.keys[sender].seed).sign_msg(msg)
+                await r2._on_phase(msg)
+        kept = sum(len(m) for m in r2.ahead_msgs.values())
+        r2.view = 1
+        await r2.replay_ahead()
+        return kept
+
+    return r2, asyncio.run(scenario())
+
+
+@pytest.mark.parametrize("ahead_buffer", [True, False], ids=["buffered", "reference_drop"])
+def test_votes_of_a_view_ahead_replay_when_it_installs(ahead_buffer):
+    """With the ahead buffer a replica keeps a view's votes that reach it
+    before it installs the view and counts them at the install; without
+    it, as in the JAX package, they are dropped."""
+    r2, kept = _votes_ahead(ahead_buffer)
+    inst = r2.instances.get((1, 1))
+    if ahead_buffer:
+        assert kept == 4 and r2.metrics["ahead_msgs_replayed"] == 4
+        assert sorted(inst.prepares) == sorted(inst.commits) == ["r1", "r3"]
+    else:
+        assert kept == 0 and (inst is None or not (inst.prepares or inst.commits))
+    assert r2.ahead_msgs == {} and r2.metrics["wrong_view"] == 4
+
+
+def test_the_ahead_buffer_is_bounded_a_sender_and_drops_passed_views():
+    """One sender's flood stops at AHEAD_PER_SENDER and leaves room for the
+    others; an install drops what was kept for the views it passed and
+    keeps the later ones."""
+    from simple_pbft_tpu_torch.committee import LocalCommittee
+    from simple_pbft_tpu_torch.crypto.signer import Signer
+    from simple_pbft_tpu_torch.messages import Prepare
+
+    com = LocalCommittee.build(n=4, clients=1, ahead_buffer=True)
+    r2 = com.replica("r2")
+    cap = r2.AHEAD_PER_SENDER
+
+    def vote(sender, view, seq):
+        msg = Prepare(view=view, seq=seq, digest="d" * 64)
+        Signer(sender, com.keys[sender].seed).sign_msg(msg)
+        return msg
+
+    async def scenario():
+        for seq in range(1, cap + 11):
+            await r2._on_phase(vote("r1", 1, seq))
+        await r2._on_phase(vote("r3", 1, 1))
+        await r2._on_phase(vote("r3", 3, 1))
+        assert r2.metrics["ahead_msgs_dropped"] == 10
+        assert {v: len(m) for v, m in r2.ahead_msgs.items()} == {1: cap + 1, 3: 1}
+        r2.view = 2
+        await r2.replay_ahead()
+
+    asyncio.run(scenario())
+    assert {v: [m.sender for m in ms] for v, ms in r2.ahead_msgs.items()} == {3: ["r3"]}
+    assert r2.metrics["ahead_msgs_replayed"] == 0
